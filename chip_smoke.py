@@ -10,10 +10,13 @@ Phases, each of which must pass:
    CUDA versions, and build every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card (TF32
-   off), at the test shapes, the ragged-edge shapes and the main path's
-   shapes; time kernel, plain version and, where one PyTorch call
-   computes the same function, that call (a yardstick only: the port
-   never calls it);
+   off for the plain versions; the GRU backward kernels compute in 3xTF32
+   on the tensor cores whatever that flag says), at the test shapes, the
+   ragged-edge shapes (rows that cut the kernels' tiles and slabs), every
+   width of both backward routes, and the main path's shapes; check that
+   the weight gradient is bitwise the same on two launches; time kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call (a yardstick only: the port never calls it);
 3. check one PPO update of the port on the card against the same update
    on the CPU (plain versions) on a small input, then drive the main
    path: recurrent MAPPO on SMAClite 3m at the bench settings (GRU
@@ -44,6 +47,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data-sheet peaks (dense), at the full 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12          # float32 FMA outside the tensor cores
+PEAK_TF32_FLOPS = 495e12        # tensor cores; float32 accuracy takes 3 TF32 products
 
 # main path: the bench configuration of the JAX package
 # (scripts/check_bench_memory.py:bench_config), copied, not imported
@@ -86,9 +90,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -107,6 +111,20 @@ def close_scaled(got, want, tol: float) -> bool:
     """|got - want| <= tol * max(1, max |want|), tensor by tensor."""
     return all(float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
                for a, b in zip(got, want) if b.numel())
+
+
+def ptxas_usage(log_text: str):
+    """[(kernel, "N registers, ...")] from ``nvcc -Xptxas -v`` output:
+    registers, barriers, stack and spills of each compiled kernel."""
+    out, kernel, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            kernel, spill = line.split("'")[1], ""
+        elif kernel and "spill stores" in line:      # printed before "Used"
+            spill = "; " + line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            out.append((kernel, line.split(":", 1)[1].strip() + spill))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +197,11 @@ def check_gru_shape(T, M, H, seed):
     errs = {"fwd": max_err(vals_k, vals_p), "grads": max_err(grads_k, grads_p)}
     ok = close(vals_k, vals_p, VAL_TOL) and close_scaled(grads_k, grads_p, GRAD_TOL)
     hs = vals_k[0]
+    route = gk.bwd_route(H)
+    n0 = gk.LAUNCHES[route]
     rec_k = gk.gru_seq_bwd(*ins[:3], hs, ins[3], ins[4], w_seq, w_fin)
+    if gk.LAUNCHES[route] != n0 + 1:
+        fail(f"gru_seq_bwd at H={H} did not go through {route}")
     rec_p = gk.gru_seq_bwd_plain(*ins[:3], hs, ins[3], ins[4], w_seq, w_fin)
     dw_k = gk.gru_seq_dw(ins[2], hs, ins[4], rec_k[0], rec_k[1])
     dw_p = gk.gru_seq_dw_plain(ins[2], hs, ins[4], rec_k[0], rec_k[1])
@@ -188,7 +210,7 @@ def check_gru_shape(T, M, H, seed):
     ok = (ok and close_scaled(rec_k, rec_p, GRAD_TOL)
           and close_scaled(dw_k, dw_p, GRAD_TOL))
     scale = max(float(x.abs().max()) for x in grads_p + list(dw_p))
-    log(f"[kernels] gru T={T} M={M} H={H}: " + " ".join(
+    log(f"[kernels] gru T={T} M={M} H={H} ({route}): " + " ".join(
         f"{k}_err={v:.3e}" for k, v in errs.items()) + f" (largest grad {scale:.3e})")
     if not ok:
         fail(f"GRU kernels disagree with the plain versions at T={T} M={M} H={H}")
@@ -227,6 +249,21 @@ def time_gru(T, M, H, ins, hs, rec):
         dgh = torch.cat([rec[0][..., :2 * H], rec[1]], -1).reshape(-1, 3 * H)
         out["dw_library_ms"] = time_ms(lambda: torch.matmul(h_prev.t(), dgh), 10)
 
+    # yardstick of the whole backward (recurrence + weight gradient): cuDNN's
+    # GRU on the same gi with identity input weights and keep = 1, autograd
+    # fwd+bwd minus fwd (cuDNN also forms the input-weight gradient)
+    gi_l = gi.clone().requires_grad_(True)
+    h0_l = h0[None].clone().requires_grad_(True)
+
+    def cudnn_fwd():
+        return cudnn(gi_l, h0_l)
+
+    def cudnn_fwd_bwd():
+        out_, hn_ = cudnn(gi_l, h0_l)
+        torch.autograd.grad(out_.sum() + hn_.sum(),
+                            [gi_l, h0_l, cudnn.weight_hh_l0, cudnn.bias_hh_l0])
+    out["bwd_library_ms"] = time_ms(cudnn_fwd_bwd, 10) - time_ms(cudnn_fwd, 10)
+
     def route(fn):
         xs = [x.clone().requires_grad_(True) for x in ins[:4]]
 
@@ -242,6 +279,10 @@ def time_gru(T, M, H, ins, hs, rec):
 
 
 def gru_bounds(T, M, H):
+    """{kernel: {"f32": (ms, by), "tc": (ms, by)}}: the least time at the
+    data-sheet peaks, with the operations on the float32 units or, where
+    the kernel runs them there, as 3xTF32 on the tensor cores (three TF32
+    products per float32 product), against the same bytes."""
     f = 4
     flops = 2.0 * T * M * H * 3 * H
     fwd_bytes = f * (H * 3 * H + 3 * H + M * H + T * M * 3 * H + T * M + T * M * H + M * H)
@@ -249,9 +290,12 @@ def gru_bounds(T, M, H):
                      + M * H + T * M * 3 * H + T * M * H + M * H)
     dw_bytes = f * (M * H + T * M * H + T * M + T * M * 3 * H + T * M * H
                     + H * 3 * H + 3 * H)
-    return {"fwd": bound_ms(fwd_bytes, flops + 10.0 * T * M * H),
-            "bwd": bound_ms(bwd_bytes, 2 * flops + 20.0 * T * M * H),
-            "dw": bound_ms(dw_bytes, flops + T * M * 3 * H)}
+    work = {"fwd": (fwd_bytes, flops, 10.0 * T * M * H),
+            "bwd": (bwd_bytes, 2 * flops, 20.0 * T * M * H),
+            "dw": (dw_bytes, flops, T * M * 3 * H)}
+    return {k: {"f32": bound_ms(b, mm + ew),
+                "tc": bound_ms(b, 3 * mm / PEAK_TF32_FLOPS * PEAK_F32_FLOPS + ew)}
+            for k, (b, mm, ew) in work.items()}
 
 
 def check_rnn_seq_apply():
@@ -280,41 +324,71 @@ def check_rnn_seq_apply():
     vals_k, grads_k = run("kernel")
     vals_s, grads_s = run("scan")
     err_v, err_g = max_err(vals_k, vals_s), max_err(grads_k, grads_s)
+    scale = max(float(g.abs().max()) for g in grads_s)
     log(f"[kernels] rnn_seq_apply bench minibatch, kernel vs scan route: "
-        f"values_err={err_v:.3e} grads_err={err_g:.3e}")
+        f"values_err={err_v:.3e} grads_err={err_g:.3e} (largest grad {scale:.3e})")
     if not (close(vals_k, vals_s, VAL_TOL) and close_scaled(grads_k, grads_s, GRAD_TOL)):
         fail("rnn_seq_apply kernel route disagrees with the scan route")
 
 
+def check_dw_deterministic(ins, hs, rec):
+    """Two launches of the weight-gradient kernel on the same inputs give
+    the same bits; report its dwh and the plain version's (cuBLAS float32)
+    against a float64 product on the card."""
+    import torch
+    from cleanmarl_tpu_torch.ops import gru_kernel as gk
+
+    first = gk.gru_seq_dw(ins[2], hs, ins[4], rec[0], rec[1])
+    second = gk.gru_seq_dw(ins[2], hs, ins[4], rec[0], rec[1])
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("gru_seq_dw differs between two launches on the same inputs")
+    H = hs.shape[-1]
+    h_prev = torch.cat([ins[2][None], ins[4][:-1, :, None] * hs[:-1]]).reshape(-1, H)
+    dgh = torch.cat([rec[0][..., :2 * H], rec[1]], -1).reshape(-1, 3 * H)
+    exact = h_prev.double().t() @ dgh.double()
+    plain = gk.gru_seq_dw_plain(ins[2], hs, ins[4], rec[0], rec[1])[0]
+    log(f"[kernels] gru_seq_dw: two launches bitwise equal; dwh max err against float64: "
+        f"kernel {float((first[0].double() - exact).abs().max()):.3e}, "
+        f"plain (cuBLAS float32) {float((plain.double() - exact).abs().max()):.3e}")
+
+
 def check_gru(results):
-    errs = {"fwd": 0.0, "bwd": 0.0, "dw": 0.0, "grads": 0.0}
+    errs = {"fwd": 0.0, "bwd": 0.0, "bwd_l2": 0.0, "dw": 0.0, "grads": 0.0}
+    from cleanmarl_tpu_torch.ops import gru_kernel as gk
 
-    def keep_max(e):
-        for k in errs:
-            errs[k] = max(errs[k], e[k])
+    def keep_max(e, H):
+        for k, v in e.items():
+            k2 = "bwd_l2" if k == "bwd" and gk.bwd_route(H) == "gru_seq_bwd_l2" else k
+            errs[k2] = max(errs[k2], v)
 
-    for T, M, H in ((7, 12, 16), (5, 3, 8), (9, 37, 128)):
-        keep_max(check_gru_shape(T, M, H, seed=H)[0])
+    # test shapes; ragged rows (M=3077: the 32-row tiles and the 64-row dw
+    # slabs do not divide it); every tensor-core width; the L2 route
+    for T, M, H in ((7, 12, 16), (5, 3, 8), (9, 37, 128), (60, 3077, 128),
+                    (7, 33, 32), (6, 50, 64), (5, 45, 96), (5, 20, 100)):
+        keep_max(check_gru_shape(T, M, H, seed=H)[0], H)
     timings = {}
     for H in (128, 256):
         e, ins, hs, rec = check_gru_shape(60, 3072, H, seed=H + 1)
-        keep_max(e)
+        keep_max(e, H)
+        if H == 128:
+            check_dw_deterministic(ins, hs, rec)
         timings[H] = time_gru(60, 3072, H, ins, hs, rec)
-    t, b = timings[128], gru_bounds(60, 3072, 128)
     src = "cleanmarl_tpu_torch/csrc/"
-    results["gru_seq_fwd"] = dict(
-        source=src + "gru_seq_fwd.cu", replaces="cleanmarl_tpu/ops/pallas_gru.py:67",
-        max_abs_err=errs["fwd"], ms=t["fwd_ms"], plain_ms=t["fwd_plain_ms"],
-        bound_ms=b["fwd"][0], bound_by=b["fwd"][1], library_ms=t["fwd_library_ms"])
-    results["gru_seq_bwd"] = dict(
-        source=src + "gru_seq_bwd.cu", replaces="cleanmarl_tpu/ops/pallas_gru.py:130",
-        max_abs_err=max(errs["bwd"], errs["grads"]), ms=t["bwd_ms"],
-        plain_ms=t["bwd_plain_ms"], bound_ms=b["bwd"][0], bound_by=b["bwd"][1],
-        library_ms=None)
-    results["gru_seq_dw"] = dict(
-        source=src + "gru_seq_bwd.cu", replaces="cleanmarl_tpu/ops/pallas_gru.py:173",
-        max_abs_err=errs["dw"], ms=t["dw_ms"], plain_ms=t["dw_plain_ms"],
-        bound_ms=b["dw"][0], bound_by=b["dw"][1], library_ms=t["dw_library_ms"])
+    rows = {"gru_seq_fwd": ("fwd", 128, "f32", "gru_seq_fwd.cu", "pallas_gru.py:67",
+                            "fwd_library_ms", errs["fwd"]),
+            "gru_seq_bwd": ("bwd", 128, "tc", "gru_seq_bwd.cu", "pallas_gru.py:130",
+                            None, max(errs["bwd"], errs["grads"])),
+            "gru_seq_bwd_l2": ("bwd", 256, "f32", "gru_seq_bwd.cu", "pallas_gru.py:130",
+                               None, errs["bwd_l2"]),
+            "gru_seq_dw": ("dw", 128, "tc", "gru_seq_bwd.cu", "pallas_gru.py:173",
+                           "dw_library_ms", errs["dw"])}
+    for name, (k, H, unit, f, rep, lib, err) in rows.items():
+        t, b = timings[H], gru_bounds(60, 3072, H)[k]
+        results[name] = dict(
+            source=src + f, replaces="cleanmarl_tpu/ops/" + rep, max_abs_err=err,
+            ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[unit][0],
+            bound_by=b[unit][1], library_ms=t[lib] if lib else None,
+            bound_f32_ms=b["f32"][0], bound_tc_ms=b["tc"][0], hidden=H)
     return timings
 
 
@@ -363,6 +437,16 @@ def check_update_against_cpu():
     log(f"[main] one PPO update, card vs CPU: metrics agree (max |diff| {worst:.3e})")
 
 
+def main_path_kernels(counters):
+    """Every counted kernel except the backward route that the main path's
+    GRU width does not take."""
+    from cleanmarl_tpu_torch.ops import gru_kernel as gk
+
+    taken = {gk.bwd_route(BENCH["actor_hidden_dim"]), gk.bwd_route(BENCH["critic_hidden_dim"])}
+    return [k for table in counters for k in table
+            if k not in {"gru_seq_bwd", "gru_seq_bwd_l2"} - taken]
+
+
 def drive_main_path(counters):
     import torch
     from cleanmarl_tpu_torch.algos.mappo import make_train
@@ -402,8 +486,8 @@ def drive_main_path(counters):
     for k, v in {**warm, **metrics, **evals}.items():
         if not math.isfinite(v):
             fail(f"non-finite metric {k}={v}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in main_path_kernels(counters):
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
     phases = meta["phase_timer"](runner, iters=1)
     log(f"[main] phase_timer {json.dumps(phases, sort_keys=True)}")
@@ -453,11 +537,15 @@ def main():
     built = _build.build_all()
     log(f"[build] {len(built)} sources in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(k + (' cached' if v['cached'] else '') for k, v in built.items())})")
+    for name, info in built.items():
+        for kernel, usage in ptxas_usage(info["ptxas"]):
+            log(f"[build] {name}: {kernel}: {usage}")
 
     # phase 2: kernels vs plain versions, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("[kernels] TF32 off (matmul and cuDNN); tolerances: returns "
+    log("[kernels] TF32 off (matmul and cuDNN) for the plain versions; the GRU backward "
+        "kernels run 3xTF32 on the tensor cores; tolerances: returns "
         f"{RET_TOL}, GRU values {VAL_TOL}, GRU grads {GRAD_TOL} x max(1, max|grad|)")
     results = {}
     check_returns(results)
@@ -472,10 +560,7 @@ def main():
     # phase 4: the CLI
     run_cli()
 
-    kernels = [dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
-                    launches=main_path["launches"][name], max_abs_err=r["max_abs_err"],
-                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+    kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name], **r)
                for name, r in results.items()]
     if args.out:
         with open(args.out, "w") as f:

@@ -182,18 +182,23 @@ def resolve_gru_impl(impl: str, hidden_dim: int, tbptt: int = 0,
 
     ``xla``/``pallas`` are accepted as aliases of ``scan``/``kernel`` so
     JAX command lines run unchanged. ``auto`` takes the CUDA kernel on a
-    CUDA device at every width, except with ``tbptt > 0`` or bf16
-    operands, which the kernel does not take (as in the JAX package);
-    on the CPU it takes the scan. No H100 crossover has been measured
-    yet, so the rule does not depend on ``hidden_dim``.
+    CUDA device at every width the kernels take
+    (``ops/gru_kernel.py:kernel_supports``), and the scan at any other
+    width, with ``tbptt > 0`` or with bf16 operands, which the kernel does
+    not take (as in the JAX package); on the CPU it takes the scan. No H100
+    crossover has been measured yet, so among the widths the kernels take
+    the rule does not depend on ``hidden_dim``. An explicit ``kernel``
+    still raises for a width the kernels refuse.
     """
+    from cleanmarl_tpu_torch.ops.gru_kernel import kernel_supports
+
     impl = _IMPL_ALIASES.get(impl, impl)
     if impl not in ("auto", "scan", "kernel"):
         raise ValueError(f"gru_impl must be auto|scan|kernel (or xla|pallas), "
                          f"got {impl!r}")
     if impl != "auto":
         return impl
-    if tbptt or bf16:
+    if tbptt or bf16 or not kernel_supports(hidden_dim):
         return "scan"
     return "kernel" if torch.device(device).type == "cuda" else "scan"
 

@@ -11,15 +11,23 @@ pre-mask output; the carry into t+1 is ``keep[t]·h_seq[t]``:
     r = σ(gi_r + gh_r); z = σ(gi_z + gh_z); n = tanh(gi_n + r·gh_n)
     h2 = (1−z)·n + z·h
 
-Three kernels (``csrc/gru_seq_fwd.cu``, ``csrc/gru_seq_bwd.cu``):
+Kernels (``csrc/gru_seq_fwd.cu``, ``csrc/gru_seq_bwd.cu``):
 
 - ``gru_seq_fwd``: the forward recurrence (replaces ``_fwd_kernel``);
 - ``gru_seq_bwd``: the reverse-time recurrence of the backward, emitting
   dgi, dh0 and the n block of dgh (replaces the recurrence part of
-  ``_make_bwd_kernel``);
-- ``gru_seq_dw``: dwh = Σ h_prevᵀ·dgh and dbh = Σ dgh over all (t, m),
-  per-block partials reduced in a fixed order (replaces the ``dwh +=``
-  accumulation of ``_make_bwd_kernel``, a race on the GPU).
+  ``_make_bwd_kernel``), by width (``bwd_route``): on the tensor cores
+  with ``wh`` held in shared memory for ``TC_WIDTHS``, and as the float32
+  kernel that streams ``wh`` from L2 (``LAUNCHES["gru_seq_bwd_l2"]``) at
+  every other width the kernels take;
+- ``gru_seq_dw``: dwh = Σ h_prevᵀ·dgh and dbh = Σ dgh over all (t, m), a
+  split-K GEMM on the tensor cores whose per-block partials are reduced in
+  a fixed order (replaces the ``dwh +=`` accumulation of
+  ``_make_bwd_kernel``, a race on the GPU).
+
+The backward kernels compute in 3xTF32 on the tensor cores (float32
+accuracy, whatever ``torch.backends.cuda.matmul.allow_tf32`` says) and
+give the same bits on every run.
 
 ``GruSeq`` ties them together as a ``torch.autograd.Function`` saving the
 same residuals as ``_gru_seq_fwd``. Each wrapper launches its kernel for
@@ -35,9 +43,35 @@ import torch
 
 from cleanmarl_tpu_torch.ops import _build
 
-LAUNCHES = {"gru_seq_fwd": 0, "gru_seq_bwd": 0, "gru_seq_dw": 0}
-MAX_HIDDEN = 512      # bwd block = H threads, TM*4H floats of shared memory
-DW_ROWS_PER_SPLIT = 4096
+LAUNCHES = {"gru_seq_fwd": 0, "gru_seq_bwd": 0, "gru_seq_bwd_l2": 0, "gru_seq_dw": 0}
+MAX_HIDDEN = 512      # fwd and L2 bwd blocks: H threads, TM*4H floats of shared memory
+TC_WIDTHS = (32, 64, 96, 128)   # multiples of 32 whose wh (H x 3H) fits a block's shared memory
+DW_TILE = 128         # dwh output tile, both sides
+DW_SLAB = 64          # rows per pipeline slab of the dw kernel
+DW_MIN_ROWS = 512     # fewest rows per split of the dw kernel
+
+
+def kernel_supports(hidden: int) -> bool:
+    """True for the widths the CUDA kernels take: hidden % 4 == 0, up to
+    MAX_HIDDEN."""
+    return hidden % 4 == 0 and 0 < hidden <= MAX_HIDDEN
+
+
+def bwd_route(hidden: int) -> str:
+    """The ``LAUNCHES`` key of the backward recurrence kernel for a width:
+    ``gru_seq_bwd`` (tensor cores, wh in shared memory) for TC_WIDTHS,
+    ``gru_seq_bwd_l2`` (float32, wh streamed from L2) otherwise."""
+    return "gru_seq_bwd" if hidden in TC_WIDTHS else "gru_seq_bwd_l2"
+
+
+def dw_splits(R: int, H: int, n_sm: int) -> Tuple[int, int]:
+    """(S, rows per split) of the dw kernel: S contiguous row ranges, each a
+    whole number of slabs, with S x output tiles at most one block per SM."""
+    tiles = -(-3 * H // DW_TILE) * -(-H // DW_TILE)
+    S = max(1, min(n_sm // tiles, -(-R // DW_MIN_ROWS)))
+    per_split = -(-R // S)
+    rows = max(DW_SLAB, -(-per_split // DW_SLAB) * DW_SLAB)
+    return max(1, -(-R // rows)), rows
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +162,9 @@ def _on_cpu(name, x) -> bool:
 
 
 def _dims(H, gi):
-    """(T, M, H) for the kernels, which take hidden % 4 == 0 up to
-    MAX_HIDDEN and gi (T, M, 3H)."""
-    if H % 4 or not 0 < H <= MAX_HIDDEN:
+    """(T, M, H) for the kernels, which take the widths of
+    ``kernel_supports`` and gi (T, M, 3H)."""
+    if not kernel_supports(H):
         raise ValueError(f"GRU kernels need hidden % 4 == 0 and hidden <= "
                          f"{MAX_HIDDEN}, got {H}")
     if gi.dim() != 3:
@@ -175,18 +209,25 @@ def gru_seq_bwd(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal):
         wh=(wh, (H, 3 * H)), bh=(bh, (3 * H,)), h0=(h0, (M, H)),
         h_seq=(h_seq, (T, M, H)), gi=(gi, (T, M, 3 * H)), keep=(keep, (T, M)),
         g_hseq=(g_hseq, (T, M, H)), g_hfinal=(g_hfinal, (M, H))), gi)
-    whT = wh.t().contiguous()        # (3H, H): coalesced reads for dgh @ wh^T
     dgi = torch.empty_like(gi)
     dghn = torch.empty_like(h_seq)
     dh0 = torch.empty_like(h0)
     lib = _build.load("gru_seq_bwd")
     p = _build.ptr
-    rc = _fn(lib, "gru_seq_bwd", 12, 3)(
-        p(wh), p(whT), p(bh), p(h0), p(h_seq), p(gi), p(keep), p(g_hseq),
-        p(g_hfinal), p(dgi), p(dghn), p(dh0), T, M, H,
-        _build.stream_ptr(gi.device))
+    route = bwd_route(H)
+    if route == "gru_seq_bwd":
+        rc = _fn(lib, "gru_seq_bwd", 11, 3)(
+            p(wh), p(bh), p(h0), p(h_seq), p(gi), p(keep), p(g_hseq),
+            p(g_hfinal), p(dgi), p(dghn), p(dh0), T, M, H,
+            _build.stream_ptr(gi.device))
+    else:
+        whT = wh.t().contiguous()    # (3H, H): coalesced reads for dgh @ wh^T
+        rc = _fn(lib, "gru_seq_bwd_l2", 12, 3)(
+            p(wh), p(whT), p(bh), p(h0), p(h_seq), p(gi), p(keep), p(g_hseq),
+            p(g_hfinal), p(dgi), p(dghn), p(dh0), T, M, H,
+            _build.stream_ptr(gi.device))
     _build.check(lib, "gru_seq_bwd", rc)
-    LAUNCHES["gru_seq_bwd"] += 1
+    LAUNCHES[route] += 1
     return dgi, dghn, dh0
 
 
@@ -198,9 +239,8 @@ def gru_seq_dw(h0, h_seq, keep, dgi, dghn) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("gru_seq_dw", dict(
         h0=(h0, (M, H)), h_seq=(h_seq, (T, M, H)), keep=(keep, (T, M)),
         dgi=(dgi, (T, M, 3 * H)), dghn=(dghn, (T, M, H))), dgi)
-    R = T * M
-    S = max(1, -(-R // DW_ROWS_PER_SPLIT))
-    rows = -(-R // S) if R else 1
+    S, rows = dw_splits(T * M, H, torch.cuda.get_device_properties(
+        dgi.device).multi_processor_count)
     part_w = torch.empty((S, H, 3 * H), device=dgi.device)
     part_b = torch.empty((S, 3 * H), device=dgi.device)
     dwh = torch.empty((H, 3 * H), device=dgi.device)

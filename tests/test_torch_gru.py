@@ -16,6 +16,7 @@ import torch
 from cleanmarl_tpu.core import networks as jnets
 from cleanmarl_tpu_torch.core import networks as tnets
 from cleanmarl_tpu_torch.core.params import from_numpy_tree, tree_leaves
+from cleanmarl_tpu_torch.ops import gru_kernel
 
 torch.set_num_threads(1)
 VAL_TOL = 1e-5
@@ -120,5 +121,14 @@ def test_resolve_gru_impl_rule():
     assert r("auto", 128, bf16=True, device="cuda") == "scan"
     assert r("xla", 128, device="cuda") == "scan"
     assert r("pallas", 128, device="cpu") == "kernel"
+    # widths the CUDA kernels refuse (hidden % 4 != 0, hidden > 512) take
+    # the scan under auto on cuda; an explicit kernel still raises
+    for h in (102, 1024, 6):
+        assert r("auto", h, device="cuda") == "scan"
+        assert r("kernel", h, device="cuda") == "kernel"
+        with pytest.raises(ValueError):                     # ... and raises at launch
+            gru_kernel._dims(h, torch.zeros(2, 3, 3 * h))
+    for h in (8, 64, 96, 100, 256, 512):
+        assert r("auto", h, device="cuda") == "kernel"
     with pytest.raises(ValueError):
         r("fast", 128)

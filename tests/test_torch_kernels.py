@@ -9,8 +9,11 @@ on a machine without JAX (``tests/conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
 Tolerances: λ-returns rtol=2e-5/atol=1e-5; GRU values 1e-5 and
-gradients 2e-4 (float32 FMA on the card, summed in another order than
-the plain version's matmuls; TF32 off).
+gradients 2e-4 (float32 FMA in the forward, 3xTF32 on the tensor cores in
+the backward, summed in another order than the plain version's matmuls;
+TF32 off for the plain versions). ``test_3xtf32_split_meets_grad_tol``
+records why 3xTF32 meets the gradient tolerance and one TF32 pass does
+not.
 """
 import numpy as np
 import pytest
@@ -85,6 +88,76 @@ def test_gru_backward_matches_autograd_of_plain_forward(T, M, H):
     assert torch.count_nonzero(got[4]) == 0
 
 
+def test_kernel_supports_and_backward_route_by_width():
+    for h in (4, 8, 100, 128, 256, 512):
+        assert gru_kernel.kernel_supports(h)
+    for h in (0, 6, 101, 516, 1024):
+        assert not gru_kernel.kernel_supports(h)
+    for h in (32, 64, 96, 128):
+        assert gru_kernel.bwd_route(h) == "gru_seq_bwd"
+    for h in (8, 16, 100, 160, 256, 512):
+        assert gru_kernel.bwd_route(h) == "gru_seq_bwd_l2"
+    assert set(gru_kernel.LAUNCHES) == {"gru_seq_fwd", "gru_seq_bwd",
+                                        "gru_seq_bwd_l2", "gru_seq_dw"}
+
+
+@pytest.mark.parametrize("R,H", [(60 * 3072, 128), (60 * 3077, 128), (84, 16),
+                                 (0, 8), (60 * 3072, 256), (4 * 40, 512)])
+def test_dw_splits_cover_rows_in_whole_slabs(R, H):
+    n_sm = 132
+    S, rows = gru_kernel.dw_splits(R, H, n_sm)
+    tiles = -(-3 * H // gru_kernel.DW_TILE) * -(-H // gru_kernel.DW_TILE)
+    assert rows % gru_kernel.DW_SLAB == 0
+    assert S * rows >= R and (S - 1) * rows < max(R, 1)
+    assert S == 1 or S * tiles <= n_sm
+    if (R, H) == (60 * 3072, 128):
+        assert (S, rows) == (44, 4224)     # 3 tiles x 44 splits = 132 blocks
+
+
+def _tf32(x, nearest=True):
+    """float32 → TF32 (10 mantissa bits): to nearest, ties away from zero,
+    as cvt.rna.tf32.f32 rounds, or truncated, as the mma reads an operand."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (0x1000 if nearest else 0)) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The kernels' split: big rounded to nearest, small = x - big as the
+    mma reads it."""
+    big = _tf32(x)
+    return big, _tf32(x - big, nearest=False)
+
+
+@pytest.mark.parametrize("case", ["dw_rows_184320", "dh_k_384"])
+def test_3xtf32_split_meets_grad_tol(case):
+    """The backward kernels' precision scheme, emulated on the CPU: a
+    product as big*big + big*small + small*big of TF32 halves stays within
+    the card tests' gradient tolerance of float64, while one TF32 product
+    (big*big) does not. The sums are taken in float64 (each product of two
+    TF32 values is exact there), so the test isolates the split's own
+    error; float32 accumulation adds what any float32 matmul adds. Cases: a
+    32 x 32 block of h_prevᵀ·dgh over the main path's 184,320 rows (T=60,
+    M=3072), and dgh @ whᵀ with K = 3H = 384."""
+    rng = np.random.RandomState(5)
+    if case == "dw_rows_184320":
+        a = np.tanh(rng.randn(32, 60 * 3072))            # h_prevᵀ: k x rows
+        b = rng.randn(60 * 3072, 32)                     # dgh: rows x c
+    else:
+        a = rng.randn(512, 384)                          # dgh: rows x 3H
+        b = rng.randn(384, 128) / np.sqrt(128)           # whᵀ: 3H x H
+    want = torch.as_tensor(a @ b)
+    a32, b32 = (torch.as_tensor(x.astype(np.float32)) for x in (a, b))
+    (ab, as_), (bb, bs) = (tuple(x.double() for x in _split(y)) for y in (a32, b32))
+    three = as_ @ bb + ab @ bs + ab @ bb
+    one = ab @ bb
+
+    def within(got):
+        err = (got.double() - want).abs()
+        return bool((err <= GRAD_TOL + 1e-4 * want.abs()).all())
+    assert within(three)
+    assert not within(one)
+
+
 def test_gru_kernel_wrappers_reject_bad_inputs_before_launch():
     wh, bh, h0, gi, keep = _gru_inputs(3, 4, 6, seed=0)
     with pytest.raises(ValueError):
@@ -117,8 +190,14 @@ def test_returns_kernel_matches_plain_on_card(shape, p_end):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,M,H", [(7, 12, 16), (5, 3, 8), (9, 37, 128),
                                    (60, 3072, 128), (8, 100, 256),
-                                   (4, 40, 512)])
+                                   (4, 40, 512), (60, 3077, 128),
+                                   (7, 33, 32), (6, 50, 64), (5, 45, 96),
+                                   (5, 20, 100)])
 def test_gru_kernels_match_plain_on_card(T, M, H):
+    """Each kernel against its plain version, at the test shapes, the main
+    path's (T=60, M=3072, H=128), a ragged one that cuts the row tiles and
+    the dw slabs (M=3077, R=184,620), every tensor-core width, and widths of
+    the L2 route (8, 16, 100, 256, 512)."""
     _card()
     wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=H, device="cuda")
     hf, hs = gru_kernel.gru_seq_fwd(wh, bh, h0, gi, keep)
@@ -127,7 +206,10 @@ def test_gru_kernels_match_plain_on_card(T, M, H):
     torch.testing.assert_close(hf, hf2, atol=VAL_TOL, rtol=0)
     g = torch.randn_like(hs)
     gf = torch.randn_like(hf)
+    route = gru_kernel.bwd_route(H)
+    n0 = gru_kernel.LAUNCHES[route]
     got = gru_kernel.gru_seq_bwd(wh, bh, h0, hs, gi, keep, g, gf)
+    assert gru_kernel.LAUNCHES[route] == n0 + 1
     want = gru_kernel.gru_seq_bwd_plain(wh, bh, h0, hs, gi, keep, g, gf)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=GRAD_TOL, rtol=1e-4)
@@ -136,3 +218,17 @@ def test_gru_kernels_match_plain_on_card(T, M, H):
     for a, b in zip(dw, dw2):
         torch.testing.assert_close(a, b, atol=GRAD_TOL, rtol=1e-4)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,M,H", [(60, 3072, 128), (13, 77, 256)])
+def test_gru_seq_dw_is_bitwise_deterministic_on_card(T, M, H):
+    _card()
+    wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=3, device="cuda")
+    _, hs = gru_kernel.gru_seq_fwd(wh, bh, h0, gi, keep)
+    dgi, dghn, _ = gru_kernel.gru_seq_bwd(wh, bh, h0, hs, gi, keep,
+                                          torch.randn_like(hs), torch.randn_like(h0))
+    first = gru_kernel.gru_seq_dw(h0, hs, keep, dgi, dghn)
+    second = gru_kernel.gru_seq_dw(h0, hs, keep, dgi, dghn)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
