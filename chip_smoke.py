@@ -16,7 +16,9 @@ Phases, each of which must pass:
    width of both backward routes, and the main path's shapes; check that
    the weight gradient is bitwise the same on two launches; time kernel,
    plain version and, where one PyTorch call computes the same function,
-   that call (a yardstick only: the port never calls it);
+   that call (a yardstick only: the port never calls it); time the card's
+   TF32 ``mma.sync`` peak (``csrc/mma_rate.cu``), the backward kernels'
+   ceiling;
 3. check one PPO update of the port on the card against the same update
    on the CPU (plain versions) on a small input, then drive the main
    path: recurrent MAPPO on SMAClite 3m at the bench settings (GRU
@@ -282,13 +284,16 @@ def gru_bounds(T, M, H):
     """{kernel: {"f32": (ms, by), "tc": (ms, by)}}: the least time at the
     data-sheet peaks, with the operations on the float32 units or, where
     the kernel runs them there, as 3xTF32 on the tensor cores (three TF32
-    products per float32 product), against the same bytes."""
+    products per float32 product), against the same bytes. Bytes are what
+    the function needs: each input it reads once (the backward reads
+    h_seq[:T-1] and keep[:T-1] as h_prev, and dgi's first 2H columns), each
+    output written once."""
     f = 4
     flops = 2.0 * T * M * H * 3 * H
     fwd_bytes = f * (H * 3 * H + 3 * H + M * H + T * M * 3 * H + T * M + T * M * H + M * H)
-    bwd_bytes = f * (H * 3 * H + 3 * H + M * H + 2 * T * M * H + T * M * 3 * H + T * M
-                     + M * H + T * M * 3 * H + T * M * H + M * H)
-    dw_bytes = f * (M * H + T * M * H + T * M + T * M * 3 * H + T * M * H
+    bwd_bytes = f * (H * 3 * H + 3 * H + M * H + (T - 1) * M * H + T * M * H
+                     + T * M * 3 * H + T * M + M * H + T * M * 3 * H + T * M * H + M * H)
+    dw_bytes = f * (M * H + (T - 1) * M * H + (T - 1) * M + T * M * 2 * H + T * M * H
                     + H * 3 * H + 3 * H)
     work = {"fwd": (fwd_bytes, flops, 10.0 * T * M * H),
             "bwd": (bwd_bytes, 2 * flops, 20.0 * T * M * H),
@@ -329,6 +334,31 @@ def check_rnn_seq_apply():
         f"values_err={err_v:.3e} grads_err={err_g:.3e} (largest grad {scale:.3e})")
     if not (close(vals_k, vals_s, VAL_TOL) and close_scaled(grads_k, grads_s, GRAD_TOL)):
         fail("rnn_seq_apply kernel route disagrees with the scan route")
+
+
+def mma_ceiling():
+    """TFLOP/s of TF32 mma.sync m16n8k8 on 132 blocks of 8 and 16 warps
+    (csrc/mma_rate.cu): the ceiling of the backward kernels, which issue
+    mma.sync (the data-sheet 495 TFLOP/s takes wgmma)."""
+    import ctypes
+    import torch
+    from cleanmarl_tpu_torch.ops import _build
+
+    lib = _build.load("mma_rate")
+    fn = lib.mma_rate_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+    blocks, iters = 132, 4000
+    out = torch.empty(blocks * 512, device="cuda")
+    rates = {}
+    for warps in (8, 16):
+        def launch():
+            _build.check(lib, "mma_rate", fn(blocks, 32 * warps, iters, _build.ptr(out),
+                                             _build.stream_ptr(out.device)))
+        ms = time_ms(launch, 3, 1)
+        rates[warps] = blocks * warps * iters * 8 * (2 * 16 * 8 * 8) / (ms * 1e-3) / 1e12
+    log("[kernels] TF32 mma.sync m16n8k8 peak: " + ", ".join(
+        f"{r:.1f} TFLOP/s at {w} warps per block" for w, r in rates.items()))
+    return rates
 
 
 def check_dw_deterministic(ins, hs, rec):
@@ -439,12 +469,12 @@ def check_update_against_cpu():
 
 def main_path_kernels(counters):
     """Every counted kernel except the backward route that the main path's
-    GRU width does not take."""
+    GRU (the actor's; the critic is an MLP) does not take."""
     from cleanmarl_tpu_torch.ops import gru_kernel as gk
 
-    taken = {gk.bwd_route(BENCH["actor_hidden_dim"]), gk.bwd_route(BENCH["critic_hidden_dim"])}
+    taken = gk.bwd_route(BENCH["actor_hidden_dim"])
     return [k for table in counters for k in table
-            if k not in {"gru_seq_bwd", "gru_seq_bwd_l2"} - taken]
+            if k not in {"gru_seq_bwd", "gru_seq_bwd_l2"} - {taken}]
 
 
 def drive_main_path(counters):
@@ -550,6 +580,7 @@ def main():
     results = {}
     check_returns(results)
     gru_times = check_gru(results)
+    mma_tflops = mma_ceiling()
     check_rnn_seq_apply()
 
     # phase 3: the main path
@@ -565,7 +596,8 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                           kernels=kernels, gru_times=gru_times, main_path=main_path),
+                           kernels=kernels, gru_times=gru_times, main_path=main_path,
+                           mma_tf32_tflops=mma_tflops),
                       f, indent=1, sort_keys=True)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

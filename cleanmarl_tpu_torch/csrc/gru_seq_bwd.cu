@@ -53,6 +53,16 @@
 //        into dh with rounded float32 adds; h_prev[t-1] starts loading
 //        after the first round's barrier, when no warp reads the h_prev
 //        tile any more.
+//    The gh product stays at the head of each step, on the serial chain.
+//    Issuing step t-1's gh (which needs only h_seq, not the carry) inside
+//    step t's dh rounds was built and gave the same bits, and was no
+//    faster: its accumulators (48 floats per thread) live across the rounds
+//    on top of this kernel's 216 registers, so every variant hit the
+//    255-register cap and spilled, with gi/bh folded into the accumulators
+//    early, and with the gh k-steps interleaved with or after the dh
+//    k-steps. 16 warps of one m16 tile each (4 per SM sub-partition instead
+//    of 2) cap a thread at 128 registers and spilled more. The shared
+//    memory holds no second h_prev tile to double-buffer.
 // 2. gru_seq_bwd_l2_kernel (the recurrence at every other width, up to
 //    H = 512): the float32 SIMT kernel that streams wh and wh^T from L2
 //    each step, one thread per hidden column. The wrapper picks the kernel
@@ -77,10 +87,11 @@
 //    of the first k tile. Each block writes its partial, the reduce
 //    kernel adds the S partials in a fixed order: no float atomics.
 //
-// Bounds (T = 60, M = 3072, H = 128): the recurrence does 2 * 2*T*M*H*3H
-// FLOP against about 855 MB, the weight gradient 2*T*M*H*3H against about
-// 474 MB; as 3xTF32 at 495 TFLOP/s both are bound by bytes (0.255 ms and
-// 0.142 ms at 3.35 TB/s).
+// Bounds (T = 60, M = 3072, H = 128; chip_smoke.py:gru_bounds): the
+// recurrence does 2 * 2*T*M*H*3H FLOP against 853 MB, the weight gradient
+// 2*T*M*H*3H against 378 MB (h0, h_seq[:T-1], keep[:T-1], dgi's first 2H
+// columns, dghn, dwh, dbh); as 3xTF32 at 495 TFLOP/s both are bound by
+// bytes (0.255 ms and 0.113 ms at 3.35 TB/s).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -818,6 +829,13 @@ extern "C" int gru_seq_bwd_l2_launch(
   }
   return (int)cudaGetLastError();
 }
+
+// The dw kernel's output tiles at width H and rows per slab, from which the
+// wrapper picks S (ops/gru_kernel.py:dw_splits).
+extern "C" int gru_seq_dw_tiles(int H) {
+  return ((3 * H + DW_BN - 1) / DW_BN) * ((H + DW_BM - 1) / DW_BM);
+}
+extern "C" int gru_seq_dw_slab_rows() { return DW_BK; }
 
 // part_w must hold S * H * 3H floats and part_b S * 3H floats; H % 4 == 0;
 // rows_per_split * S >= T * M.

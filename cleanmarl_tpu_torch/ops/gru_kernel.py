@@ -46,8 +46,6 @@ from cleanmarl_tpu_torch.ops import _build
 LAUNCHES = {"gru_seq_fwd": 0, "gru_seq_bwd": 0, "gru_seq_bwd_l2": 0, "gru_seq_dw": 0}
 MAX_HIDDEN = 512      # fwd and L2 bwd blocks: H threads, TM*4H floats of shared memory
 TC_WIDTHS = (32, 64, 96, 128)   # multiples of 32 whose wh (H x 3H) fits a block's shared memory
-DW_TILE = 128         # dwh output tile, both sides
-DW_SLAB = 64          # rows per pipeline slab of the dw kernel
 DW_MIN_ROWS = 512     # fewest rows per split of the dw kernel
 
 
@@ -64,13 +62,14 @@ def bwd_route(hidden: int) -> str:
     return "gru_seq_bwd" if hidden in TC_WIDTHS else "gru_seq_bwd_l2"
 
 
-def dw_splits(R: int, H: int, n_sm: int) -> Tuple[int, int]:
-    """(S, rows per split) of the dw kernel: S contiguous row ranges, each a
-    whole number of slabs, with S x output tiles at most one block per SM."""
-    tiles = -(-3 * H // DW_TILE) * -(-H // DW_TILE)
+def dw_splits(R: int, tiles: int, slab: int, n_sm: int) -> Tuple[int, int]:
+    """(S, rows per split) of the dw kernel over R rows: S contiguous row
+    ranges, each a whole number of ``slab``-row slabs, with S x ``tiles``
+    output tiles at most one block per SM. The kernel states its tiles and
+    slab (``gru_seq_dw_tiles``, ``gru_seq_dw_slab_rows``)."""
     S = max(1, min(n_sm // tiles, -(-R // DW_MIN_ROWS)))
     per_split = -(-R // S)
-    rows = max(DW_SLAB, -(-per_split // DW_SLAB) * DW_SLAB)
+    rows = max(slab, -(-per_split // slab) * slab)
     return max(1, -(-R // rows)), rows
 
 
@@ -139,6 +138,10 @@ def gru_seq_dw_plain(h0, h_seq, keep, dgi, dghn):
 # ---------------------------------------------------------------------------
 
 def _check(name, shapes: dict, ref: torch.Tensor):
+    """Device, dtype, shape and layout of each kernel argument. The kernels
+    copy and read every tensor but ``keep`` in 8- or 16-byte vectors, so
+    those must start on a 16-byte boundary (a fresh tensor does; a view
+    at an odd offset does not)."""
     for k, (x, shape) in shapes.items():
         if x.device != ref.device:
             raise ValueError(f"{name}: {k} is on {x.device}, expected {ref.device}")
@@ -149,6 +152,8 @@ def _check(name, shapes: dict, ref: torch.Tensor):
                              f"got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+        if k != "keep" and x.data_ptr() % 16:
+            raise ValueError(f"{name}: {k} must start on a 16-byte boundary")
 
 
 def _on_cpu(name, x) -> bool:
@@ -239,13 +244,13 @@ def gru_seq_dw(h0, h_seq, keep, dgi, dghn) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("gru_seq_dw", dict(
         h0=(h0, (M, H)), h_seq=(h_seq, (T, M, H)), keep=(keep, (T, M)),
         dgi=(dgi, (T, M, 3 * H)), dghn=(dghn, (T, M, H))), dgi)
-    S, rows = dw_splits(T * M, H, torch.cuda.get_device_properties(
-        dgi.device).multi_processor_count)
+    lib = _build.load("gru_seq_bwd")
+    S, rows = dw_splits(T * M, lib.gru_seq_dw_tiles(H), lib.gru_seq_dw_slab_rows(),
+                        torch.cuda.get_device_properties(dgi.device).multi_processor_count)
     part_w = torch.empty((S, H, 3 * H), device=dgi.device)
     part_b = torch.empty((S, 3 * H), device=dgi.device)
     dwh = torch.empty((H, 3 * H), device=dgi.device)
     dbh = torch.empty((3 * H,), device=dgi.device)
-    lib = _build.load("gru_seq_bwd")
     p = _build.ptr
     rc = _fn(lib, "gru_seq_dw", 9, 4, extra=(ctypes.c_longlong,))(
         p(h0), p(h_seq), p(keep), p(dgi), p(dghn), p(part_w), p(part_b),

@@ -104,10 +104,10 @@ def test_kernel_supports_and_backward_route_by_width():
 @pytest.mark.parametrize("R,H", [(60 * 3072, 128), (60 * 3077, 128), (84, 16),
                                  (0, 8), (60 * 3072, 256), (4 * 40, 512)])
 def test_dw_splits_cover_rows_in_whole_slabs(R, H):
-    n_sm = 132
-    S, rows = gru_kernel.dw_splits(R, H, n_sm)
-    tiles = -(-3 * H // gru_kernel.DW_TILE) * -(-H // gru_kernel.DW_TILE)
-    assert rows % gru_kernel.DW_SLAB == 0
+    n_sm, tile, slab = 132, 128, 64      # csrc/gru_seq_bwd.cu: DW_BM = DW_BN, DW_BK
+    tiles = -(-3 * H // tile) * -(-H // tile)
+    S, rows = gru_kernel.dw_splits(R, tiles, slab, n_sm)
+    assert rows % slab == 0
     assert S * rows >= R and (S - 1) * rows < max(R, 1)
     assert S == 1 or S * tiles <= n_sm
     if (R, H) == (60 * 3072, 128):
@@ -167,6 +167,18 @@ def test_gru_kernel_wrappers_reject_bad_inputs_before_launch():
         gru_kernel._check("gru_seq_fwd", dict(keep=(keep[:, :2], (3, 4))), gi)
     with pytest.raises(TypeError):
         gru_kernel._check("gru_seq_fwd", dict(gi=(gi.double(), gi.shape)), gi)
+
+
+def test_gru_kernel_wrappers_reject_misaligned_views():
+    """The kernels read in 16-byte vectors: a contiguous view that starts
+    off a 16-byte boundary is refused, except keep (read by element)."""
+    flat = torch.zeros(4 + 4 * 8)
+    h0 = flat[1:33].view(4, 8)
+    assert h0.is_contiguous() and h0.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        gru_kernel._check("gru_seq_bwd", dict(h0=(h0, (4, 8))), h0)
+    gru_kernel._check("gru_seq_bwd", dict(keep=(h0, (4, 8))), h0)
+    gru_kernel._check("gru_seq_bwd", dict(h0=(flat[4:].view(4, 8), (4, 8))), h0)
 
 
 # ---------------------------------------------------------------------------
