@@ -10,14 +10,15 @@ Phases, each of which must pass:
    CUDA versions, and build every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card (TF32
-   off for the plain versions; the GRU backward kernels compute in 3xTF32
-   on the tensor cores whatever that flag says), at the test shapes, the
-   ragged-edge shapes (rows that cut the kernels' tiles and slabs), every
-   width of both backward routes, and the main path's shapes; check that
-   the weight gradient is bitwise the same on two launches; time kernel,
+   off for the plain versions; the GRU tensor-core kernels compute in
+   3xTF32 whatever that flag says), at the test shapes, the ragged-edge
+   shapes (rows that cut the kernels' tiles and slabs), every width of
+   both routes of the forward and the backward, and the main path's
+   shapes; check that the forward and the weight gradient are bitwise the
+   same on two launches, and report both against float64; time kernel,
    plain version and, where one PyTorch call computes the same function,
    that call (a yardstick only: the port never calls it); time the card's
-   TF32 ``mma.sync`` peak (``csrc/mma_rate.cu``), the backward kernels'
+   TF32 ``mma.sync`` peak (``csrc/mma_rate.cu``), the tensor-core kernels'
    ceiling;
 3. check one PPO update of the port on the card against the same update
    on the CPU (plain versions) on a small input, then drive the main
@@ -25,7 +26,9 @@ Phases, each of which must pass:
    actor and critic of width 128, 8192 envs, rollouts of 60 steps, 8
    epochs x 8 minibatches), one warm-up ``train_block``, two timed ones
    and one ``eval_fn``, with every kernel's launch count set to 0 just
-   before and read just after;
+   before and read just after; then time the rollout and the update
+   alone, and read the update's device busy share (one update timed
+   without the profiler, one profiled for its kernels' device time);
 4. run the CLI (``python -m cleanmarl_tpu_torch.algos.mappo``) for one
    short block as a subprocess.
 
@@ -179,7 +182,8 @@ def _gru_inputs(T, M, H, seed):
 def check_gru_shape(T, M, H, seed):
     """Values and all gradients of the fused GRU (K2 + K3 through the
     autograd.Function) against autograd through the plain scan, and each
-    backward kernel against its plain version."""
+    backward kernel against its plain version; each recurrence must go
+    through the route its width takes."""
     import torch
     from cleanmarl_tpu_torch.ops import gru_kernel as gk
 
@@ -194,7 +198,11 @@ def check_gru_shape(T, M, H, seed):
         grads = torch.autograd.grad((hs * w_seq).sum() + (hf * w_fin).sum(), xs[:4])
         return [hs.detach(), hf.detach()], list(grads)
 
+    fwd = gk.fwd_route(H)
+    n0 = gk.LAUNCHES[fwd]
     (vals_k, grads_k) = run(gk.gru_seq)
+    if gk.LAUNCHES[fwd] != n0 + 1:
+        fail(f"gru_seq_fwd at H={H} did not go through {fwd}")
     (vals_p, grads_p) = run(gk.gru_seq_fwd_plain)
     errs = {"fwd": max_err(vals_k, vals_p), "grads": max_err(grads_k, grads_p)}
     ok = close(vals_k, vals_p, VAL_TOL) and close_scaled(grads_k, grads_p, GRAD_TOL)
@@ -212,7 +220,7 @@ def check_gru_shape(T, M, H, seed):
     ok = (ok and close_scaled(rec_k, rec_p, GRAD_TOL)
           and close_scaled(dw_k, dw_p, GRAD_TOL))
     scale = max(float(x.abs().max()) for x in grads_p + list(dw_p))
-    log(f"[kernels] gru T={T} M={M} H={H} ({route}): " + " ".join(
+    log(f"[kernels] gru T={T} M={M} H={H} ({fwd}, {route}): " + " ".join(
         f"{k}_err={v:.3e}" for k, v in errs.items()) + f" (largest grad {scale:.3e})")
     if not ok:
         fail(f"GRU kernels disagree with the plain versions at T={T} M={M} H={H}")
@@ -338,8 +346,8 @@ def check_rnn_seq_apply():
 
 def mma_ceiling():
     """TFLOP/s of TF32 mma.sync m16n8k8 on 132 blocks of 8 and 16 warps
-    (csrc/mma_rate.cu): the ceiling of the backward kernels, which issue
-    mma.sync (the data-sheet 495 TFLOP/s takes wgmma)."""
+    (csrc/mma_rate.cu): the ceiling of the tensor-core GRU kernels, which
+    issue mma.sync (the data-sheet 495 TFLOP/s takes wgmma)."""
     import ctypes
     import torch
     from cleanmarl_tpu_torch.ops import _build
@@ -382,14 +390,37 @@ def check_dw_deterministic(ins, hs, rec):
         f"plain (cuBLAS float32) {float((plain.double() - exact).abs().max()):.3e}")
 
 
+def check_fwd_deterministic(ins):
+    """Two launches of the forward on the same inputs give the same bits;
+    report its h_seq and the plain float32 scan's against a float64
+    recurrence on the card."""
+    import torch
+    from cleanmarl_tpu_torch.ops import gru_kernel as gk
+
+    first = gk.gru_seq_fwd(*ins)
+    second = gk.gru_seq_fwd(*ins)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("gru_seq_fwd differs between two launches on the same inputs")
+    exact = gk.gru_seq_fwd_plain(*(x.double() for x in ins))[1]
+    plain = gk.gru_seq_fwd_plain(*ins)[1]
+    err_k = float((first[1].double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    log(f"[kernels] gru_seq_fwd: two launches bitwise equal; h_seq max err against "
+        f"float64: kernel {err_k:.3e}, plain (float32 scan) {err_p:.3e}")
+    return dict(kernel=err_k, plain=err_p)
+
+
 def check_gru(results):
-    errs = {"fwd": 0.0, "bwd": 0.0, "bwd_l2": 0.0, "dw": 0.0, "grads": 0.0}
+    errs = {"fwd": 0.0, "fwd_l2": 0.0, "bwd": 0.0, "bwd_l2": 0.0, "dw": 0.0, "grads": 0.0}
     from cleanmarl_tpu_torch.ops import gru_kernel as gk
 
     def keep_max(e, H):
         for k, v in e.items():
-            k2 = "bwd_l2" if k == "bwd" and gk.bwd_route(H) == "gru_seq_bwd_l2" else k
-            errs[k2] = max(errs[k2], v)
+            if k == "fwd" and gk.fwd_route(H) == "gru_seq_fwd_l2":
+                k = "fwd_l2"
+            elif k == "bwd" and gk.bwd_route(H) == "gru_seq_bwd_l2":
+                k = "bwd_l2"
+            errs[k] = max(errs[k], v)
 
     # test shapes; ragged rows (M=3077: the 32-row tiles and the 64-row dw
     # slabs do not divide it); every tensor-core width; the L2 route
@@ -401,11 +432,14 @@ def check_gru(results):
         e, ins, hs, rec = check_gru_shape(60, 3072, H, seed=H + 1)
         keep_max(e, H)
         if H == 128:
+            vs_f64 = check_fwd_deterministic(ins)
             check_dw_deterministic(ins, hs, rec)
         timings[H] = time_gru(60, 3072, H, ins, hs, rec)
     src = "cleanmarl_tpu_torch/csrc/"
-    rows = {"gru_seq_fwd": ("fwd", 128, "f32", "gru_seq_fwd.cu", "pallas_gru.py:67",
+    rows = {"gru_seq_fwd": ("fwd", 128, "tc", "gru_seq_fwd.cu", "pallas_gru.py:67",
                             "fwd_library_ms", errs["fwd"]),
+            "gru_seq_fwd_l2": ("fwd", 256, "f32", "gru_seq_fwd.cu", "pallas_gru.py:67",
+                               "fwd_library_ms", errs["fwd_l2"]),
             "gru_seq_bwd": ("bwd", 128, "tc", "gru_seq_bwd.cu", "pallas_gru.py:130",
                             None, max(errs["bwd"], errs["grads"])),
             "gru_seq_bwd_l2": ("bwd", 256, "f32", "gru_seq_bwd.cu", "pallas_gru.py:130",
@@ -419,6 +453,8 @@ def check_gru(results):
             ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[unit][0],
             bound_by=b[unit][1], library_ms=t[lib] if lib else None,
             bound_f32_ms=b["f32"][0], bound_tc_ms=b["tc"][0], hidden=H)
+    results["gru_seq_fwd"].update(h_seq_err_vs_f64=vs_f64["kernel"],
+                                  plain_h_seq_err_vs_f64=vs_f64["plain"])
     return timings
 
 
@@ -468,13 +504,56 @@ def check_update_against_cpu():
 
 
 def main_path_kernels(counters):
-    """Every counted kernel except the backward route that the main path's
-    GRU (the actor's; the critic is an MLP) does not take."""
+    """Every counted kernel except the forward and backward routes that the
+    main path's GRU (the actor's; the critic is an MLP) does not take."""
     from cleanmarl_tpu_torch.ops import gru_kernel as gk
 
-    taken = gk.bwd_route(BENCH["actor_hidden_dim"])
-    return [k for table in counters for k in table
-            if k not in {"gru_seq_bwd", "gru_seq_bwd_l2"} - {taken}]
+    H = BENCH["actor_hidden_dim"]
+    routes = {"gru_seq_fwd", "gru_seq_fwd_l2", "gru_seq_bwd", "gru_seq_bwd_l2"}
+    skipped = routes - {gk.fwd_route(H), gk.bwd_route(H)}
+    return [k for table in counters for k in table if k not in skipped]
+
+
+def profile_update(meta, runner):
+    """The update layer's device busy share: one PPO update of the main path
+    timed without the profiler, then the same update under
+    ``torch.profiler`` (CUDA activity only) for the device time of every
+    kernel in it. Busy share = device time over wall time (one stream, so
+    the kernels do not overlap), against both wall times; the profiler
+    slows the host, so the unprofiled share is the one that counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    r2, traj, h0 = meta["collect_rollout"](runner)
+    meta["ppo_update"](r2, traj, h0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta["ppo_update"](r2, traj, h0)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        meta["ppo_update"](r2, traj, h0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels[e.key] = (us / 1e6, e.count)
+    busy = sum(sec for sec, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[main] one PPO update: device busy {busy:.4f} s, "
+        f"{sum(c for _, c in kernels.values())} device ops; wall {wall_plain:.4f} s "
+        f"unprofiled ({100 * busy / wall_plain:.1f} % busy), {wall:.4f} s under the "
+        f"profiler ({100 * busy / wall:.1f} % busy)")
+    for name, (sec, n) in top:
+        log(f"[main]   {sec * 1e3:9.3f} ms {n:6d}x {name[:90]}")
+    return dict(wall_s=wall_plain, wall_profiled_s=wall, device_busy_s=busy,
+                busy_share=busy / wall_plain, busy_share_profiled=busy / wall,
+                top=[dict(name=k, s=v[0], count=v[1]) for k, v in top])
 
 
 def drive_main_path(counters):
@@ -523,6 +602,7 @@ def drive_main_path(counters):
     log(f"[main] phase_timer {json.dumps(phases, sort_keys=True)}")
     return dict(launches=launches, env_steps_per_s=sps, block_s=block_s,
                 peak_gib=peak / 2**30, metrics=metrics, eval=evals, phases=phases,
+                update_profile=profile_update(meta, runner),
                 model_flops_per_step=meta["model_flops_per_step"])
 
 
@@ -574,8 +654,8 @@ def main():
     # phase 2: kernels vs plain versions, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("[kernels] TF32 off (matmul and cuDNN) for the plain versions; the GRU backward "
-        "kernels run 3xTF32 on the tensor cores; tolerances: returns "
+    log("[kernels] TF32 off (matmul and cuDNN) for the plain versions; the GRU tensor-core "
+        "kernels run 3xTF32; tolerances: returns "
         f"{RET_TOL}, GRU values {VAL_TOL}, GRU grads {GRAD_TOL} x max(1, max|grad|)")
     results = {}
     check_returns(results)

@@ -10,9 +10,9 @@
 // the work is split into the recurrence and a weight-gradient GEMM.
 //
 // Precision: both products run on the tensor cores with mma.sync
-// m16n8k8 TF32 in the 3xTF32 split. Each operand x becomes
-// big = x rounded to TF32 (as cvt.rna.tf32 rounds) and small = x - big,
-// and acc += small*big' + big*small' + big*big' with float32
+// m16n8k8 TF32 in the 3xTF32 split (helpers in tf32_mma.cuh). Each
+// operand x becomes big = x rounded to TF32 (as cvt.rna.tf32 rounds) and
+// small = x - big, and acc += small*big' + big*small' + big*big' with float32
 // accumulation, which keeps each product's error near 2^-21 (float32
 // accuracy). The tensor core truncates when it adds into its float32
 // accumulator, so a long chain of mma into one accumulator drifts (2.5e-3
@@ -92,75 +92,11 @@
 // 2*T*M*H*3H against 378 MB (h0, h_seq[:T-1], keep[:T-1], dgi's first 2H
 // columns, dghn, dwh, dbh); as 3xTF32 at 495 TFLOP/s both are bound by
 // bytes (0.255 ms and 0.113 ms at 3.35 TB/s).
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// --------------------------------------------------------------------------
-// 3xTF32 on mma.sync m16n8k8, and cp.async
-// --------------------------------------------------------------------------
-
-// big = x rounded to TF32 to nearest, ties away (what cvt.rna.tf32.f32
-// gives, done with two integer ops instead of the conversion unit);
-// small = x - big, exact in float32; the mma reads the top 19 bits of it.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// d += a * b on m16n8k8. A float32-accurate product takes three:
-// small*big', big*small' and big*big'. The kernels issue them as three
-// passes over the accumulator tiles that share a B fragment, so
-// consecutive mma do not wait on each other.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of m16n8k8 (rows g, g+8; columns q, q+4) from a row-major
-// shared tile, each element split into big and small.
-__device__ __forceinline__ void load_a_frag(const float* base, int ld, int g, int q,
-                                            uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  split_tf32(base[g * ld + q], ab[0], as[0]);
-  split_tf32(base[(g + 8) * ld + q], ab[1], as[1]);
-  split_tf32(base[g * ld + q + 4], ab[2], as[2]);
-  split_tf32(base[(g + 8) * ld + q + 4], ab[3], as[3]);
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 fills the 16 bytes with 0.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+#include "tf32_mma.cuh"
 
 // --------------------------------------------------------------------------
 // 1. the recurrence on the tensor cores, wh resident in shared memory
 // --------------------------------------------------------------------------
-
-constexpr int RB = 32;  // rows per block: two m16 tiles
-constexpr int JN = 2;   // 8-column mma tiles of each gate per warp
-
-// Column swizzle of row k of wh in shared memory: element (k, n) sits at
-// k * 3H + (n ^ wh_swz(k)). With 3H a multiple of 32 the gh B fragments
-// (lanes vary k by q and n by g) and the dh B fragments (lanes vary the
-// row by g and the column by q) both hit 32 distinct banks. The XOR moves
-// bits 2-4 only, so aligned 4-float chunks stay whole for cp.async.
-__device__ __forceinline__ int wh_swz(int k) { return ((k & 3) << 3) | (k & 4); }
 
 // Copy the rows entering step t (h0 at t = 0, raw h_seq[t-1] after) of the
 // block's RB rows into the shared tile; rows past M are zero-filled.
@@ -198,10 +134,7 @@ __global__ void __launch_bounds__(4 * H / JN, 1) gru_seq_bwd_tc_kernel(
   const int jw = (tid >> 5) * 8 * JN;            // the warp's hidden columns
   const int row0 = blockIdx.x * RB;
 
-  for (int i = tid; i < H * H3 / 4; i += NT) {
-    const int k = i / (H3 / 4), n = (i % (H3 / 4)) * 4;
-    cp_async16(whs + k * H3 + (n ^ wh_swz(k)), wh + (size_t)k * H3 + n, 16);
-  }
+  load_wh_swz<H>(whs, wh, tid, NT);
   for (int i = tid; i < H3; i += NT) bhs[i] = bh[i];
   if (T > 0) load_hprev<H>(hps, h0, hseq, T - 1, M, row0, tid);
   cp_async_commit();

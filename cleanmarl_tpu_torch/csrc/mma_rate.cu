@@ -1,7 +1,8 @@
 // Peak issue rate of TF32 mma.sync m16n8k8 on the card: the ceiling of the
-// GRU backward kernels (gru_seq_bwd.cu), which issue nothing else on the
-// tensor cores. Every warp issues independent mma into eight accumulators,
-// `iters` times (2*16*8*8 FLOP per mma); chip_smoke.py:mma_ceiling times it.
+// GRU tensor-core kernels (gru_seq_fwd.cu, gru_seq_bwd.cu), which issue
+// nothing else on the tensor cores. Every warp issues independent mma into
+// eight accumulators, `iters` times (2*16*8*8 FLOP per mma);
+// chip_smoke.py:mma_ceiling times it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

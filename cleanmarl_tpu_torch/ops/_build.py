@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to
 ``cleanmarl_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of the source and flags, so an edited source is rebuilt and an
+hash of the source, every shared header (``csrc/*.cuh``, on the include
+path) and the flags, so an edited source or header is rebuilt and an
 unchanged one is reused. Nothing here runs at import time: the first
 wrapper call on a CUDA tensor builds what it needs, and ``build_all``
 compiles every source at once, one ``nvcc`` process per source in
@@ -44,9 +45,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
@@ -63,7 +66,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             info[name] = {"seconds": 0.0, "ptxas": "", "cached": True}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
+               str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -13,21 +13,25 @@ pre-mask output; the carry into t+1 is ``keep[t]·h_seq[t]``:
 
 Kernels (``csrc/gru_seq_fwd.cu``, ``csrc/gru_seq_bwd.cu``):
 
-- ``gru_seq_fwd``: the forward recurrence (replaces ``_fwd_kernel``);
+- ``gru_seq_fwd``: the forward recurrence (replaces ``_fwd_kernel``), by
+  width (``fwd_route``): on the tensor cores with ``wh`` held in shared
+  memory for ``TC_WIDTHS``, and as the float32 kernel that streams ``wh``
+  from L2 (``LAUNCHES["gru_seq_fwd_l2"]``) at every other width the
+  kernels take;
 - ``gru_seq_bwd``: the reverse-time recurrence of the backward, emitting
   dgi, dh0 and the n block of dgh (replaces the recurrence part of
-  ``_make_bwd_kernel``), by width (``bwd_route``): on the tensor cores
-  with ``wh`` held in shared memory for ``TC_WIDTHS``, and as the float32
-  kernel that streams ``wh`` from L2 (``LAUNCHES["gru_seq_bwd_l2"]``) at
-  every other width the kernels take;
+  ``_make_bwd_kernel``), by width (``bwd_route``), with the same two
+  routes (``LAUNCHES["gru_seq_bwd_l2"]`` off ``TC_WIDTHS``);
 - ``gru_seq_dw``: dwh = Σ h_prevᵀ·dgh and dbh = Σ dgh over all (t, m), a
   split-K GEMM on the tensor cores whose per-block partials are reduced in
   a fixed order (replaces the ``dwh +=`` accumulation of
   ``_make_bwd_kernel``, a race on the GPU).
 
-The backward kernels compute in 3xTF32 on the tensor cores (float32
-accuracy, whatever ``torch.backends.cuda.matmul.allow_tf32`` says) and
-give the same bits on every run.
+The tensor-core kernels (both recurrences at ``TC_WIDTHS`` and the
+weight gradient) compute in 3xTF32 (float32 accuracy, whatever
+``torch.backends.cuda.matmul.allow_tf32`` says); the L2 routes in float32
+FMA. Every kernel sums in a fixed order and gives the same bits on every
+run.
 
 ``GruSeq`` ties them together as a ``torch.autograd.Function`` saving the
 same residuals as ``_gru_seq_fwd``. Each wrapper launches its kernel for
@@ -43,8 +47,9 @@ import torch
 
 from cleanmarl_tpu_torch.ops import _build
 
-LAUNCHES = {"gru_seq_fwd": 0, "gru_seq_bwd": 0, "gru_seq_bwd_l2": 0, "gru_seq_dw": 0}
-MAX_HIDDEN = 512      # fwd and L2 bwd blocks: H threads, TM*4H floats of shared memory
+LAUNCHES = {"gru_seq_fwd": 0, "gru_seq_fwd_l2": 0, "gru_seq_bwd": 0, "gru_seq_bwd_l2": 0,
+            "gru_seq_dw": 0}
+MAX_HIDDEN = 512      # L2-route blocks: H threads, TM*4H floats of shared memory
 TC_WIDTHS = (32, 64, 96, 128)   # multiples of 32 whose wh (H x 3H) fits a block's shared memory
 DW_MIN_ROWS = 512     # fewest rows per split of the dw kernel
 
@@ -53,6 +58,13 @@ def kernel_supports(hidden: int) -> bool:
     """True for the widths the CUDA kernels take: hidden % 4 == 0, up to
     MAX_HIDDEN."""
     return hidden % 4 == 0 and 0 < hidden <= MAX_HIDDEN
+
+
+def fwd_route(hidden: int) -> str:
+    """The ``LAUNCHES`` key of the forward kernel for a width:
+    ``gru_seq_fwd`` (tensor cores, wh in shared memory) for TC_WIDTHS,
+    ``gru_seq_fwd_l2`` (float32, wh streamed from L2) otherwise."""
+    return "gru_seq_fwd" if hidden in TC_WIDTHS else "gru_seq_fwd_l2"
 
 
 def bwd_route(hidden: int) -> str:
@@ -197,11 +209,12 @@ def gru_seq_fwd(wh, bh, h0, gi, keep) -> Tuple[torch.Tensor, torch.Tensor]:
     h_final = torch.empty((M, H), device=gi.device)
     lib = _build.load("gru_seq_fwd")
     p = _build.ptr
-    rc = _fn(lib, "gru_seq_fwd", 7, 3)(
+    route = fwd_route(H)
+    rc = _fn(lib, route, 7, 3)(
         p(wh), p(bh), p(h0), p(gi), p(keep), p(h_seq), p(h_final), T, M, H,
         _build.stream_ptr(gi.device))
     _build.check(lib, "gru_seq_fwd", rc)
-    LAUNCHES["gru_seq_fwd"] += 1
+    LAUNCHES[route] += 1
     return h_final, h_seq
 
 

@@ -9,17 +9,20 @@ on a machine without JAX (``tests/conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
 Tolerances: λ-returns rtol=2e-5/atol=1e-5; GRU values 1e-5 and
-gradients 2e-4 (float32 FMA in the forward, 3xTF32 on the tensor cores in
-the backward, summed in another order than the plain version's matmuls;
-TF32 off for the plain versions). ``test_3xtf32_split_meets_grad_tol``
-records why 3xTF32 meets the gradient tolerance and one TF32 pass does
-not.
+gradients 2e-4 (3xTF32 on the tensor cores at the widths of
+``TC_WIDTHS``, float32 FMA on the L2 routes, summed in another order than
+the plain version's matmuls; TF32 off for the plain versions).
+``test_3xtf32_split_meets_grad_tol`` and
+``test_3xtf32_fwd_recurrence_meets_val_tol`` record why 3xTF32 meets the
+gradient and value tolerances and one TF32 pass does not.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
-from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
+from cleanmarl_tpu_torch.ops import _build, gru_kernel, returns_kernel
 
 torch.set_num_threads(1)
 RET_TOL = dict(rtol=2e-5, atol=1e-5)
@@ -94,11 +97,28 @@ def test_kernel_supports_and_backward_route_by_width():
     for h in (0, 6, 101, 516, 1024):
         assert not gru_kernel.kernel_supports(h)
     for h in (32, 64, 96, 128):
+        assert gru_kernel.fwd_route(h) == "gru_seq_fwd"
         assert gru_kernel.bwd_route(h) == "gru_seq_bwd"
     for h in (8, 16, 100, 160, 256, 512):
+        assert gru_kernel.fwd_route(h) == "gru_seq_fwd_l2"
         assert gru_kernel.bwd_route(h) == "gru_seq_bwd_l2"
-    assert set(gru_kernel.LAUNCHES) == {"gru_seq_fwd", "gru_seq_bwd",
+    assert set(gru_kernel.LAUNCHES) == {"gru_seq_fwd", "gru_seq_fwd_l2", "gru_seq_bwd",
                                         "gru_seq_bwd_l2", "gru_seq_dw"}
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh renames every library (a stale build is never
+    reused); an unchanged tree keeps its names."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert {n: _build.library_path(n) for n in _build.SOURCES} == before
+    header = src / "tf32_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    assert all(after[n].parent == _build.BUILD_DIR for n in _build.SOURCES)
 
 
 @pytest.mark.parametrize("R,H", [(60 * 3072, 128), (60 * 3077, 128), (84, 16),
@@ -158,6 +178,69 @@ def test_3xtf32_split_meets_grad_tol(case):
     assert not within(one)
 
 
+def _trunc32(x):
+    """float64 → float32 rounded toward zero, as the tensor core adds into
+    its float32 accumulator."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    f[over] = torch.nextafter(f[over], torch.zeros_like(f[over]))
+    return f
+
+
+def _mma_rounds(a_halves, b_halves, kc=4):
+    """a @ b as csrc/gru_seq_fwd.cu sums it: per 8-deep k-step three passes
+    (small·big, big·small, big·big), each an exact 8-term sum truncated into
+    a float32 accumulator; fresh accumulators every ``kc`` k-steps, added
+    into the total with rounded float32 adds."""
+    (ab, as_), (bb, bs) = a_halves, b_halves
+    tot = torch.zeros(ab.shape[0], bb.shape[1])
+    acc = torch.zeros_like(tot)
+    for ks in range(ab.shape[1] // 8):
+        k = slice(8 * ks, 8 * ks + 8)
+        for a, b in ((as_, bb), (ab, bs), (ab, bb)):
+            acc = _trunc32(acc.double() + a[:, k].double() @ b[k].double())
+        if (ks + 1) % kc == 0:
+            tot, acc = tot + acc, torch.zeros_like(acc)
+    return tot
+
+
+@pytest.mark.parametrize("accumulate", ["exact", "mma_rounds"])
+def test_3xtf32_fwd_recurrence_meets_val_tol(accumulate):
+    """The forward kernel's precision scheme, emulated on the CPU: 60 steps
+    of the GRU recurrence at H = 128 over 64 rows, with gh = h @ wh taken
+    as big·big + big·small + small·big of TF32 halves and the carry kept in
+    float32, stays within VAL_TOL of a float64 recurrence; one TF32 product
+    (big·big) does not. "exact" sums each step's products in float64;
+    "mma_rounds" sums them as the kernel does (``_mma_rounds``)."""
+    ins = _gru_inputs(60, 64, 128, seed=11)
+    wh, bh, h0, gi, keep = ins
+    H, w_halves = 128, _split(wh)
+
+    def three(h):
+        if accumulate == "mma_rounds":
+            return _mma_rounds(_split(h), w_halves)
+        (ab, as_), (bb, bs) = (tuple(x.double() for x in y) for y in (_split(h), w_halves))
+        return (as_ @ bb + ab @ bs + ab @ bb).float()
+
+    def one(h):
+        return (_split(h)[0].double() @ w_halves[0].double()).float()
+
+    def recurrence(product):
+        h, out = h0, []
+        for t in range(gi.shape[0]):
+            r, z, n = gru_kernel._gates(gi[t], product(h) + bh, H)
+            h2 = (1.0 - z) * n + z * h
+            out.append(h2)
+            h = keep[t][:, None] * h2
+        return torch.stack(out)
+
+    want = gru_kernel.gru_seq_fwd_plain(*(x.double() for x in ins))[1]
+    err_three = float((recurrence(three).double() - want).abs().max())
+    err_one = float((recurrence(one).double() - want).abs().max())
+    assert err_three <= VAL_TOL
+    assert err_one > VAL_TOL
+
+
 def test_gru_kernel_wrappers_reject_bad_inputs_before_launch():
     wh, bh, h0, gi, keep = _gru_inputs(3, 4, 6, seed=0)
     with pytest.raises(ValueError):
@@ -209,10 +292,14 @@ def test_gru_kernels_match_plain_on_card(T, M, H):
     """Each kernel against its plain version, at the test shapes, the main
     path's (T=60, M=3072, H=128), a ragged one that cuts the row tiles and
     the dw slabs (M=3077, R=184,620), every tensor-core width, and widths of
-    the L2 route (8, 16, 100, 256, 512)."""
+    the L2 routes (8, 16, 100, 256, 512); each recurrence goes through the
+    route of its width."""
     _card()
     wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=H, device="cuda")
+    fwd = gru_kernel.fwd_route(H)
+    n0 = gru_kernel.LAUNCHES[fwd]
     hf, hs = gru_kernel.gru_seq_fwd(wh, bh, h0, gi, keep)
+    assert gru_kernel.LAUNCHES[fwd] == n0 + 1
     hf2, hs2 = gru_kernel.gru_seq_fwd_plain(wh, bh, h0, gi, keep)
     torch.testing.assert_close(hs, hs2, atol=VAL_TOL, rtol=0)
     torch.testing.assert_close(hf, hf2, atol=VAL_TOL, rtol=0)
@@ -242,5 +329,16 @@ def test_gru_seq_dw_is_bitwise_deterministic_on_card(T, M, H):
                                           torch.randn_like(hs), torch.randn_like(h0))
     first = gru_kernel.gru_seq_dw(h0, hs, keep, dgi, dghn)
     second = gru_kernel.gru_seq_dw(h0, hs, keep, dgi, dghn)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,M,H", [(60, 3072, 128), (9, 37, 32), (13, 77, 256)])
+def test_gru_seq_fwd_is_bitwise_deterministic_on_card(T, M, H):
+    _card()
+    ins = _gru_inputs(T, M, H, seed=4, device="cuda")
+    first = gru_kernel.gru_seq_fwd(*ins)
+    second = gru_kernel.gru_seq_fwd(*ins)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
