@@ -19,7 +19,12 @@ Phases, each of which must pass:
    plain version and, where one PyTorch call computes the same function,
    that call (a yardstick only: the port never calls it); time the card's
    TF32 ``mma.sync`` peak (``csrc/mma_rate.cu``), the tensor-core kernels'
-   ceiling;
+   ceiling. The λ-return kernel is also held at inputs broadcast over the
+   agents (read without a copy), T = 1 and T = 257, and timed by its device
+   time alone: CUDA graphs of its launches replayed between CUDA events,
+   cold (each launch after an L2 flush, the flushes' own time subtracted)
+   and warm (back to back), beside the kernel it replaced, one copy of as
+   many bytes, and the wrapper's host time per call;
 3. check one PPO update of the port on the card against the same update
    on the CPU (plain versions) on a small input, then drive the main
    path: recurrent MAPPO on SMAClite 3m at the bench settings (GRU
@@ -28,7 +33,8 @@ Phases, each of which must pass:
    and one ``eval_fn``, with every kernel's launch count set to 0 just
    before and read just after; then time the rollout and the update
    alone, and read the update's device busy share (one update timed
-   without the profiler, one profiled for its kernels' device time);
+   without the profiler, one profiled for its kernels' device time, the
+   λ-return kernel's among them);
 4. run the CLI (``python -m cleanmarl_tpu_torch.algos.mappo``) for one
    short block as a subprocess.
 
@@ -53,6 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12          # float32 FMA outside the tensor cores
 PEAK_TF32_FLOPS = 495e12        # tensor cores; float32 accuracy takes 3 TF32 products
+L2_FLUSH_BYTES = 128 * 2**20    # written between cold launches: 2.5x the 50 MB L2
 
 # main path: the bench configuration of the JAX package
 # (scripts/check_bench_memory.py:bench_config), copied, not imported
@@ -93,6 +100,78 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph(body, n: int):
+    """A CUDA graph of ``n`` calls of ``body`` (one call first, outside the
+    graph, on the capture's side stream: module load and allocator)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            body()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def device_ms(launch, n_warm: int = 200, n_cold: int = 50, reps: int = 5):
+    """(cold, warm) device ms of one ``launch()``, from CUDA graphs replayed
+    between CUDA events, so the host's per-call cost is out of the loop.
+    Warm: ``n_warm`` launches back to back (inputs that fit the 50 MB L2
+    stay there). Cold: ``n_cold`` launches, each after a write of
+    ``L2_FLUSH_BYTES``, minus a graph of the writes alone. Each is the
+    median of ``reps`` replays (cold: of the replay-by-replay differences)."""
+    import statistics
+    import torch
+
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def flushed():
+        flush_buf.zero_()
+        launch()
+    warm, cold, flush = (_graph(launch, n_warm), _graph(flushed, n_cold),
+                         _graph(flush_buf.zero_, n_cold))
+    for g in (warm, cold, flush):
+        _replay_ms(g)
+    warm_ms = statistics.median(_replay_ms(warm) for _ in range(reps)) / n_warm
+    cold_ms = statistics.median(_replay_ms(cold) - _replay_ms(flush)
+                                for _ in range(reps)) / n_cold
+    del warm, cold, flush, flush_buf
+    torch.cuda.empty_cache()
+    return cold_ms, warm_ms
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """Host ms per call of ``fn`` (the wrapper's own cost: checks, output
+    allocation, the ctypes call), timed before the device catches up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
 
 
 def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = PEAK_F32_FLOPS):
@@ -136,35 +215,137 @@ def ptxas_usage(log_text: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# (T, E, agents or None, P(ended), reward and flag per env, value per env):
+# "per env" inputs are (T, E) broadcast over the agents as the MAPPO update
+# builds them (algos/ppo_common.py: x[..., None].expand(values.shape))
+RETURNS_CASES = (
+    (7, 5, 3, 0.2, False, False), (25, 130, None, 0.0, False, False),
+    (60, 8192, 3, 0.02, False, False),
+    (60, 8192, 3, 0.02, True, True),        # the main path
+    (60, 8191, 3, 0.02, True, True),        # ragged last block
+    (1, 77, 3, 0.2, True, True),            # T = 1
+    (21, 50, 3, 0.1, True, False),          # one step over the kernel's 20-step chunk
+    (257, 1000, 3, 0.02, True, True),       # T over three chunks in flight
+    (257, 130, None, 0.05, False, False),
+    (60, 1000, 3, 0.05, True, False))       # per-agent values (IPPO)
+RETURNS_MAIN = (60, 8192, 3, 0.02, True, True)
+
+
+def _returns_inputs(T, E, n, p_end, shared_r, shared_v, seed):
+    """r, e, V (T, E[, n]) and bootstrap (E[, n]) on the card; a shared
+    input is drawn per env and broadcast over the agents."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    full = (T, E) if n is None else (T, E, n)
+
+    def draw(fn, shape, shared):
+        if not shared:
+            return fn(shape)
+        return fn(shape[:-1])[..., None].expand(shape)
+    r = draw(lambda s: torch.randn(s, generator=gen, device="cuda"), full, shared_r)
+    e = draw(lambda s: torch.rand(s, generator=gen, device="cuda") < p_end, full, shared_r)
+    v = draw(lambda s: torch.randn(s, generator=gen, device="cuda"), full, shared_v)
+    b = draw(lambda s: torch.randn(s, generator=gen, device="cuda"), full[1:], shared_v)
+    return r, e, v, b
+
+
+def returns_bytes(T, B, Rr, Rv) -> int:
+    """Bytes the λ-return function needs: G and A written (T, B), V read
+    at (T, B / Rv), r (4 B) and e (1 B) at (T, B / Rr), the bootstrap (B / Rv)."""
+    return T * B * 8 + T * (B // Rv) * 4 + T * (B // Rr) * 5 + (B // Rv) * 4
+
+
+def _column_launch(r, e, v, b):
+    """A launch of the yardstick kernel of csrc/lambda_returns.cu (one
+    thread per column, the loop over T in the thread, full (T, B) inputs:
+    the design the port's kernel replaced; the port never calls it)."""
+    import ctypes
+    import torch
+    from cleanmarl_tpu_torch.ops import _build
+
+    lib = _build.load("lambda_returns")
+    fn = lib.lambda_returns_column_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                                           ctypes.c_float, ctypes.c_void_p]
+    r, e, v, b = (x.contiguous() for x in (r, e, v, b))
+    g, a = torch.empty_like(v), torch.empty_like(v)
+    T, p = v.shape[0], _build.ptr
+
+    def launch():
+        _build.check(lib, "lambda_returns", fn(
+            p(r), p(e), p(v), p(b), p(g), p(a), T, v.numel() // T, 0.99, 0.95,
+            _build.stream_ptr(v.device)))
+    return launch, (g, a)
+
+
 def check_returns(results):
+    """K1 against its plain version at every case of RETURNS_CASES (shared
+    inputs must reach the kernel without a copy), two launches bitwise
+    equal, then its device time at the main path's inputs: cold (L2
+    flushed) and warm, from CUDA graphs, beside the column kernel it
+    replaced, the same kernel on materialised (R = 1) inputs, one copy of
+    as many bytes, the wrapper's host time and the plain version."""
     import torch
     from cleanmarl_tpu_torch.ops import returns_kernel as rk
 
-    gen = torch.Generator("cuda").manual_seed(0)
     errs = []
-    for shape, p_end in (((7, 5, 3), 0.2), ((25, 130), 0.0), ((60, 8192, 3), 0.02)):
-        r = torch.randn(shape, generator=gen, device="cuda")
-        e = torch.rand(shape, generator=gen, device="cuda") < p_end
-        v = torch.randn(shape, generator=gen, device="cuda")
-        b = torch.randn(shape[1:], generator=gen, device="cuda")
+    for i, case in enumerate(RETURNS_CASES):
+        r, e, v, b = _returns_inputs(*case, seed=i)
+        (kr, ke, kv, kb), Rr, Rv = rk.kernel_args(r, e, v, b)
+        want_r = case[2] if case[4] else 1
+        want_v = case[2] if case[5] else 1
+        shared = ([(kr, r), (ke, e)] if case[4] else []) + ([(kv, v), (kb, b)] if case[5] else [])
+        if (Rr, Rv) != (want_r, want_v) or any(k.data_ptr() != x.data_ptr() for k, x in shared):
+            fail(f"lambda_returns at {case}: the kernel would read R=({Rr}, {Rv}), "
+                 f"expected ({want_r}, {want_v}) without a copy")
+        n0 = rk.LAUNCHES["lambda_returns"]
         got = rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95)
+        if rk.LAUNCHES["lambda_returns"] != n0 + 1:
+            fail("lambda_returns_kernel did not count its launch")
         want = rk.lambda_returns_plain(r, e, v, b, 0.99, 0.95)
         err = max_err(got, want)
-        log(f"[kernels] lambda_returns {shape}: max_abs_err={err:.3e}")
+        log(f"[kernels] lambda_returns T={case[0]} E={case[1]} agents={case[2]} "
+            f"R=({Rr}, {Rv}): max_abs_err={err:.3e}")
         if not close(got, want, RET_TOL):
-            fail(f"lambda_returns disagrees with its plain version at {shape}")
+            fail(f"lambda_returns disagrees with its plain version at {case}")
         errs.append(err)
-    T, B = 60, 8192 * 3
-    ms = time_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95), 200)
+    r, e, v, b = _returns_inputs(*RETURNS_MAIN, seed=0)
+    first = rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95)
+    second = rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95)
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        fail("lambda_returns differs between two launches on the same inputs")
+
+    T, B = v.shape[0], v[0].numel()
+    n_bytes = returns_bytes(T, B, RETURNS_MAIN[2], RETURNS_MAIN[2])
+    bnd, by = bound_ms(n_bytes, 8 * T * B)
+    ms, warm = device_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95))
+    full = [x.contiguous() for x in (r, e, v, b)]
+    r1_ms, r1_warm = device_ms(lambda: rk.lambda_returns_kernel(*full, 0.99, 0.95))
+    col_launch, col_out = _column_launch(r, e, v, b)
+    col_launch()
+    col_err = max_err(col_out, first)
+    col_ms, col_warm = device_ms(col_launch)
+    host = host_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95))
     plain = time_ms(lambda: rk.lambda_returns_plain(r, e, v, b, 0.99, 0.95), 10)
-    bnd, by = bound_ms(T * B * (4 + 1 + 4 + 4 + 4) + 4 * B, 8 * T * B)
-    log(f"[kernels] lambda_returns (60, 8192, 3): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+    src = torch.empty(n_bytes // 8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms, copy_warm = device_ms(lambda: dst.copy_(src))
+    log("[kernels] lambda_returns: two launches bitwise equal; at the main path's inputs "
+        f"(T={T}, B={B}, reward, flag and value per env, R=3): {n_bytes} B, bound "
+        f"{bnd:.5f} ms ({by}); device ms cold/warm: kernel {ms:.5f}/{warm:.5f} "
+        f"({bnd / ms:.1%} of the bound cold), kernel on materialised inputs (R=1) "
+        f"{r1_ms:.5f}/{r1_warm:.5f}, column kernel it replaced (R=1) {col_ms:.5f}/"
+        f"{col_warm:.5f} (max |diff| {col_err:.1e}), one copy of {n_bytes} B "
+        f"{copy_ms:.5f}/{copy_warm:.5f}; wrapper host {host:.5f} ms per call; "
+        f"plain {plain:.4f} ms")
     results["lambda_returns"] = dict(
         source="cleanmarl_tpu_torch/csrc/lambda_returns.cu",
         replaces="cleanmarl_tpu/ops/pallas_returns.py:35",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-        library_ms=None)
+        library_ms=None, warm_ms=warm, host_ms=host, copy_ms=copy_ms,
+        copy_warm_ms=copy_warm, materialised_ms=r1_ms, materialised_warm_ms=r1_warm,
+        column_kernel_ms=col_ms, column_kernel_warm_ms=col_warm, bytes=n_bytes)
 
 
 def _gru_inputs(T, M, H, seed):
@@ -453,6 +634,11 @@ def check_gru(results):
             ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[unit][0],
             bound_by=b[unit][1], library_ms=t[lib] if lib else None,
             bound_f32_ms=b["f32"][0], bound_tc_ms=b["tc"][0], hidden=H)
+        if k == "bwd":
+            # no one call computes the recurrence alone; cuDNN's GRU backward
+            # (fwd+bwd - fwd) is the yardstick of recurrence + weight gradient
+            results[name].update(whole_bwd_library_ms=t["bwd_library_ms"],
+                                 whole_bwd_ms=t["bwd_ms"] + t["dw_ms"])
     results["gru_seq_fwd"].update(h_seq_err_vs_f64=vs_f64["kernel"],
                                   plain_h_seq_err_vs_f64=vs_f64["plain"])
     return timings
@@ -544,16 +730,21 @@ def profile_update(meta, runner):
         if us > 0:
             kernels[e.key] = (us / 1e6, e.count)
     busy = sum(sec for sec, _ in kernels.values())
+    n_ops = sum(c for _, c in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"[main] one PPO update: device busy {busy:.4f} s, "
-        f"{sum(c for _, c in kernels.values())} device ops; wall {wall_plain:.4f} s "
-        f"unprofiled ({100 * busy / wall_plain:.1f} % busy), {wall:.4f} s under the "
-        f"profiler ({100 * busy / wall:.1f} % busy)")
-    for name, (sec, n) in top:
-        log(f"[main]   {sec * 1e3:9.3f} ms {n:6d}x {name[:90]}")
+    k1 = [(k, v) for k, v in kernels.items() if "lambda_returns" in k]
+    if not k1:
+        fail("the profiled update ran no lambda_returns kernel")
+    log(f"[main] one PPO update: device busy {busy:.4f} s, {n_ops} device ops; wall "
+        f"{wall_plain:.4f} s unprofiled ({100 * busy / wall_plain:.1f} % busy), "
+        f"{wall:.4f} s under the profiler ({100 * busy / wall:.1f} % busy)")
+    for name, (sec, n) in top + k1:
+        log(f"[main]   {sec * 1e3:9.4f} ms {n:6d}x {name[:90]}")
     return dict(wall_s=wall_plain, wall_profiled_s=wall, device_busy_s=busy,
-                busy_share=busy / wall_plain, busy_share_profiled=busy / wall,
-                top=[dict(name=k, s=v[0], count=v[1]) for k, v in top])
+                device_ops=n_ops, busy_share=busy / wall_plain,
+                busy_share_profiled=busy / wall,
+                top=[dict(name=k, s=v[0], count=v[1]) for k, v in top],
+                lambda_returns=[dict(name=k, s=v[0], count=v[1]) for k, v in k1])
 
 
 def drive_main_path(counters):

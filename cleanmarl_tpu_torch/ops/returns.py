@@ -6,7 +6,9 @@
 ``use_kernel=None`` picks by device: a CUDA tensor goes to the CUDA
 kernel (``ops/returns_kernel.py``, one launch for G and A), a CPU tensor
 to the plain reverse loop. ``use_kernel=False`` asks for the plain loop
-on any device.
+on any device. Inputs are (T, ...) as in the JAX package; a team reward
+or flag broadcast over trailing axes (``x[..., None].expand(...)``) is
+read in place, not copied.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from cleanmarl_tpu_torch.ops.returns_kernel import (
 
 
 def _flat_args(rewards, ended, values, bootstrap_value):
-    return (rewards.float().contiguous(), ended.bool().contiguous(),
-            values.float().contiguous(), bootstrap_value.float().contiguous())
+    """The dtypes both versions take; layouts stay as they are (the kernel
+    wrapper reads an input broadcast over trailing axes through its base,
+    ``returns_kernel.repeat_base``, and copies any other non-contiguous one)."""
+    return rewards.float(), ended.bool(), values.float(), bootstrap_value.float()
 
 
 def lambda_advantages(rewards, ended, values, bootstrap_value, gamma, lam,

@@ -8,7 +8,8 @@ on a machine without JAX (``tests/conftest.py`` imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
-Tolerances: λ-returns rtol=2e-5/atol=1e-5; GRU values 1e-5 and
+Tolerances: λ-returns rtol=2e-5/atol=1e-5 (float32 in both, the kernel's
+FMAs round differently); GRU values 1e-5 and
 gradients 2e-4 (3xTF32 on the tensor cores at the widths of
 ``TC_WIDTHS``, float32 FMA on the L2 routes, summed in another order than
 the plain version's matmuls; TF32 off for the plain versions).
@@ -30,12 +31,23 @@ VAL_TOL = 1e-5
 GRAD_TOL = 2e-4
 
 
-def _returns_inputs(shape, p_end, seed, device="cpu"):
+def _returns_inputs(shape, p_end, seed, device="cpu", per_env=()):
+    """r, e, V (shape) and bootstrap (shape[1:]); an input named in
+    ``per_env`` is drawn without the trailing agent axis and broadcast over
+    it as a view, as the MAPPO update passes the team reward, the end flag
+    and the centralized critic's value (``x[..., None].expand``)."""
     rng = np.random.RandomState(seed)
-    xs = (rng.randn(*shape).astype(np.float32), rng.rand(*shape) < p_end,
-          rng.randn(*shape).astype(np.float32),
-          rng.randn(*shape[1:]).astype(np.float32))
-    return [torch.as_tensor(x, device=device) for x in xs]
+    full = dict(r=shape, e=shape, v=shape, b=shape[1:])
+    draw = dict(r=lambda s: rng.randn(*s).astype(np.float32), e=lambda s: rng.rand(*s) < p_end,
+                v=lambda s: rng.randn(*s).astype(np.float32),
+                b=lambda s: rng.randn(*s).astype(np.float32))
+    out = []
+    for k, s in full.items():
+        if k in per_env:
+            out.append(torch.as_tensor(draw[k](s[:-1]), device=device)[..., None].expand(s))
+        else:
+            out.append(torch.as_tensor(draw[k](s), device=device))
+    return out
 
 
 def _gru_inputs(T, M, H, seed, device="cpu"):
@@ -65,6 +77,62 @@ def test_returns_cpu_tensor_takes_plain_version_without_launch():
     torch.testing.assert_close(g, g2, rtol=0, atol=0)
     torch.testing.assert_close(a, a2 + 0.0, rtol=0, atol=0)
     torch.testing.assert_close(a, g - v, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout,R", [
+    ("contiguous", 1), ("agents_expanded", 3), ("two_axes_expanded", 6),
+    ("offset_view", 1), ("size1_trailing", 1),
+    ("transposed", None), ("middle_axis_expanded", None), ("strided_rows", None)])
+def test_repeat_base_shares_storage_or_declines(layout, R):
+    """An expand over trailing axes reaches the kernel as its base (the same
+    storage, no copy) and the repeat factor; a layout the kernel cannot
+    read is declined (the wrapper then copies it)."""
+    base = torch.arange(6 * 5, dtype=torch.float32).view(6, 5)
+    x = {"contiguous": base,
+         "agents_expanded": base[..., None].expand(6, 5, 3),
+         "two_axes_expanded": base[:, :, None, None].expand(6, 5, 2, 3),
+         "offset_view": torch.arange(8 * 5, dtype=torch.float32).view(8, 5)[2:],
+         "size1_trailing": base[..., None],
+         "transposed": base.t(),
+         "middle_axis_expanded": base[:, None, :].expand(6, 3, 5),
+         "strided_rows": base[:, :4]}[layout]
+    got = returns_kernel.repeat_base(x)
+    if R is None:
+        assert got is None
+        return
+    b, r = got
+    assert r == R and b.data_ptr() == x.data_ptr() and b.is_contiguous()
+    assert tuple(b.shape) == (x.shape[0], x[0].numel() // R)
+    torch.testing.assert_close(b[..., None].expand(b.shape + (R,)).reshape(x.shape), x,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("per_env,want_R", [
+    (("r", "e", "v", "b"), (3, 3)),     # MAPPO, centralized critic (the main path)
+    (("r", "e"), (3, 1)),               # per-agent values (IPPO)
+    ((), (1, 1)),
+    (("r",), (1, 1))])                  # r and e differ: both read at R = 1
+def test_kernel_args_read_broadcast_inputs_without_copies(per_env, want_R):
+    """What the wrapper hands the kernel for each layout of the MAPPO update:
+    per-env inputs as their (T, E) bases, sharing storage with the caller's
+    tensors (through ``ops/returns.py`` too, which no longer copies); a
+    pair whose factors differ is made contiguous."""
+    from cleanmarl_tpu_torch.ops import returns as tret
+
+    ins = _returns_inputs((7, 5, 3), 0.3, seed=2, per_env=per_env)
+    flat = tret._flat_args(*ins)
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(flat, ins))
+    (r, e, v, b), Rr, Rv = returns_kernel.kernel_args(*flat)
+    assert (Rr, Rv) == want_R
+    assert tuple(r.shape) == tuple(e.shape) == (7, 15 // Rr)
+    assert tuple(v.shape) == (7, 15 // Rv) and tuple(b.shape) == (1, 15 // Rv)
+    for k, got, x in zip("revb", (r, e, v, b), ins):
+        if (k in "re" and Rr > 1) or (k in "vb" and Rv > 1):
+            assert got.data_ptr() == x.data_ptr()
+    rep = ((r, Rr), (e, Rr), (v, Rv), (b, Rv))
+    for (got, R), x in zip(rep, ins):
+        full = got[..., None].expand(got.shape + (R,)).reshape(got.shape[0], -1)
+        torch.testing.assert_close(full, x.reshape(got.shape[0], -1), rtol=0, atol=0)
 
 
 def test_gru_cpu_tensors_take_plain_versions_without_launch():
@@ -268,18 +336,40 @@ def test_gru_kernel_wrappers_reject_misaligned_views():
 # on the card
 # ---------------------------------------------------------------------------
 
+CENTRAL = ("r", "e", "v", "b")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,p_end", [((7, 5, 3), 0.2), ((25, 130), 0.0),
-                                         ((60, 8192, 3), 0.02)])
-def test_returns_kernel_matches_plain_on_card(shape, p_end):
+@pytest.mark.parametrize("shape,p_end,per_env", [
+    ((7, 5, 3), 0.2, ()), ((25, 130), 0.0, ()), ((60, 8192, 3), 0.02, ()),
+    ((60, 8192, 3), 0.02, CENTRAL),          # the main path, R = 3
+    ((60, 8191, 3), 0.02, CENTRAL),          # ragged last block
+    ((1, 77, 3), 0.2, CENTRAL), ((1, 77), 0.2, ()),          # T = 1
+    ((21, 50, 3), 0.1, ("r", "e")),          # one step over a 20-step chunk
+    ((257, 1000, 3), 0.02, CENTRAL),         # T over three chunks in flight
+    ((257, 130), 0.05, ()), ((60, 1000, 3), 0.05, ("r", "e"))])
+def test_returns_kernel_matches_plain_on_card(shape, p_end, per_env):
+    """The kernel against the plain loop at R = 1 and 3, a ragged B, T = 1,
+    T = 60 and T over several chunks; each call counts one launch."""
     _card()
-    r, e, v, b = _returns_inputs(shape, p_end, seed=1, device="cuda")
+    r, e, v, b = _returns_inputs(shape, p_end, seed=1, device="cuda", per_env=per_env)
     n0 = returns_kernel.LAUNCHES["lambda_returns"]
     g, a = returns_kernel.lambda_returns_kernel(r, e, v, b, 0.99, 0.95)
     assert returns_kernel.LAUNCHES["lambda_returns"] == n0 + 1
     g2, a2 = returns_kernel.lambda_returns_plain(r, e, v, b, 0.99, 0.95)
     torch.testing.assert_close(g, g2, **RET_TOL)
     torch.testing.assert_close(a, a2, **RET_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,per_env", [((60, 8192, 3), CENTRAL), ((257, 130), ())])
+def test_returns_kernel_is_bitwise_deterministic_on_card(shape, per_env):
+    _card()
+    ins = _returns_inputs(shape, 0.05, seed=6, device="cuda", per_env=per_env)
+    first = returns_kernel.lambda_returns_kernel(*ins, 0.99, 0.95)
+    second = returns_kernel.lambda_returns_kernel(*ins, 0.99, 0.95)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

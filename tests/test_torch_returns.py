@@ -19,48 +19,70 @@ torch.set_num_threads(1)
 TOL = dict(rtol=2e-5, atol=1e-5)
 
 CASES = {
-    # (shape, ended probability, gamma, lam) — the JAX kernel's own cases
-    "small_7x5x3": ((7, 5, 3), 0.2, 0.97, 0.9),
-    "padded_25x130": ((25, 130), 0.0, 0.99, 0.95),
-    "ends_12x33": ((12, 33), 0.3, 0.99, 0.95),
+    # (shape, ended probability, gamma, lam, per-env inputs) — the JAX
+    # kernel's own cases, then the MAPPO update's layouts: "team" draws the
+    # reward and ended flag one per env and broadcasts them over the trailing
+    # agent axis as algos/ppo_common.py:ppo_update does
+    # (x[..., None].expand(values.shape)); "central" also the centralized
+    # critic's value and bootstrap (ppo_common.py:critic_values)
+    "small_7x5x3": ((7, 5, 3), 0.2, 0.97, 0.9, ()),
+    "padded_25x130": ((25, 130), 0.0, 0.99, 0.95, ()),
+    "ends_12x33": ((12, 33), 0.3, 0.99, 0.95, ()),
+    "team_12x33x3": ((12, 33, 3), 0.2, 0.99, 0.95, ("r", "e")),
+    "central_12x33x3": ((12, 33, 3), 0.2, 0.99, 0.95, ("r", "e", "v", "b")),
 }
 
 
-def _inputs(shape, p_end, seed):
+def _inputs(shape, p_end, seed, per_env=()):
+    """numpy r, e, V (shape) and bootstrap (shape[1:]); an input named in
+    ``per_env`` lacks the trailing agent axis."""
     rng = np.random.RandomState(seed)
-    r = rng.randn(*shape).astype(np.float32)
-    e = rng.rand(*shape) < p_end
-    v = rng.randn(*shape).astype(np.float32)
-    b = rng.randn(*shape[1:]).astype(np.float32)
+
+    def cut(name, s):
+        return s[:-1] if name in per_env else s
+    r = rng.randn(*cut("r", shape)).astype(np.float32)
+    e = rng.rand(*cut("e", shape)) < p_end
+    v = rng.randn(*cut("v", shape)).astype(np.float32)
+    b = rng.randn(*cut("b", shape[1:])).astype(np.float32)
     return r, e, v, b
 
 
-def _t(*xs):
-    return [torch.as_tensor(x) for x in xs]
+def _j(shape, *xs):
+    """JAX inputs: each broadcast to its full shape."""
+    full = (shape, shape, shape, shape[1:])
+    return [jnp.asarray(np.broadcast_to(x if x.shape == s else x[..., None], s))
+            for x, s in zip(xs, full)]
+
+
+def _t(*xs, shape=None):
+    """Port inputs; with ``shape``, a per-env input is broadcast over the
+    agents as a view (``x[..., None].expand``), as the MAPPO update does."""
+    ts = [torch.as_tensor(x) for x in xs]
+    if shape is None:
+        return ts
+    full = (shape, shape, shape, shape[1:])
+    return [x if tuple(x.shape) == s else x[..., None].expand(s) for x, s in zip(ts, full)]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("ref", ["scan", "pallas"])
 def test_lambda_returns_matches_jax(case, ref):
-    shape, p_end, gamma, lam = CASES[case]
-    r, e, v, b = _inputs(shape, p_end, seed=len(case))
+    shape, p_end, gamma, lam, per_env = CASES[case]
+    xs = _inputs(shape, p_end, seed=len(case), per_env=per_env)
     if ref == "scan":
-        want = jret.lambda_returns(jnp.asarray(r), jnp.asarray(e), jnp.asarray(v),
-                                   jnp.asarray(b), gamma, lam, use_pallas=False)
+        want = jret.lambda_returns(*_j(shape, *xs), gamma, lam, use_pallas=False)
     else:
-        want = lambda_returns_pallas(jnp.asarray(r), jnp.asarray(e), jnp.asarray(v),
-                                     jnp.asarray(b), gamma, lam)
-    got = tret.lambda_returns(*_t(r, e, v, b), gamma, lam)
+        want = lambda_returns_pallas(*_j(shape, *xs), gamma, lam)
+    got = tret.lambda_returns(*_t(*xs, shape=shape), gamma, lam)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_lambda_advantages_matches_jax(case):
-    shape, p_end, gamma, lam = CASES[case]
-    r, e, v, b = _inputs(shape, p_end, seed=7)
-    g_want, a_want = jret.lambda_advantages(
-        jnp.asarray(r), jnp.asarray(e), jnp.asarray(v), jnp.asarray(b), gamma, lam)
-    g, a = tret.lambda_advantages(*_t(r, e, v, b), gamma, lam)
+    shape, p_end, gamma, lam, per_env = CASES[case]
+    xs = _inputs(shape, p_end, seed=7, per_env=per_env)
+    g_want, a_want = jret.lambda_advantages(*_j(shape, *xs), gamma, lam)
+    g, a = tret.lambda_advantages(*_t(*xs, shape=shape), gamma, lam)
     np.testing.assert_allclose(g.numpy(), np.asarray(g_want), **TOL)
     np.testing.assert_allclose(a.numpy(), np.asarray(a_want), **TOL)
 
