@@ -35,8 +35,19 @@ Phases, each of which must pass:
    alone, and read the update's device busy share (one update timed
    without the profiler, one profiled for its kernels' device time, the
    λ-return kernel's among them);
-4. run the CLI (``python -m cleanmarl_tpu_torch.algos.mappo``) for one
-   short block as a subprocess.
+4. run the CLIs (``python -m cleanmarl_tpu_torch.algos.mappo`` and
+   ``...algos.qmix`` on MPE simple_spread) for one short block each, as
+   subprocesses;
+5. the off-policy slice, which launches no kernel: one QMIX and one VDN
+   update on the card against the same update on the CPU, then QMIX and
+   VDN on MPE simple_spread at the JAX package's validated recipes
+   (qmix_spread, vdn_spread: 32 envs, hidden 64), warm-up and timed
+   ``train_block``s and one ``eval_fn`` each, with the kernel counts set
+   to 0 before and read after; each prints env-steps/s, updates per block,
+   one update's wall time, peak memory, that the update count equals the
+   episode (QMIX) or iteration (VDN) clock, and the device busy share of
+   one block (its device time under ``torch.profiler`` against an
+   unprofiled block with as many updates).
 
 The line before last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -700,6 +711,19 @@ def main_path_kernels(counters):
     return [k for table in counters for k in table if k not in skipped]
 
 
+def device_kernels(prof):
+    """{name: (device seconds, count)} of every device op that a
+    ``torch.profiler`` run recorded with device time."""
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels[e.key] = (us / 1e6, e.count)
+    return kernels
+
+
 def profile_update(meta, runner):
     """The update layer's device busy share: one PPO update of the main path
     timed without the profiler, then the same update under
@@ -722,13 +746,7 @@ def profile_update(meta, runner):
         meta["ppo_update"](r2, traj, h0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels[e.key] = (us / 1e6, e.count)
+    kernels = device_kernels(prof)
     busy = sum(sec for sec, _ in kernels.values())
     n_ops = sum(c for _, c in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
@@ -797,11 +815,17 @@ def drive_main_path(counters):
                 model_flops_per_step=meta["model_flops_per_step"])
 
 
-def run_cli():
-    cmd = [sys.executable, "-m", "cleanmarl_tpu_torch.algos.mappo", "--recurrent",
-           "true", "--env_type", "smaclite", "--env_name", "3m", "--device", "cuda",
-           "--num_envs", "16", "--total_timesteps", "19200", "--eval_steps", "19200",
-           "--seed", "0"]
+MAPPO_CLI = ["--recurrent", "true", "--env_type", "smaclite", "--env_name", "3m",
+             "--device", "cuda", "--num_envs", "16", "--total_timesteps", "19200",
+             "--eval_steps", "19200", "--seed", "0"]
+# one train_block of the qmix_spread recipe's width (40 iterations of 32 envs)
+QMIX_CLI = ["--env_type", "mpe", "--env_name", "simple_spread_v3", "--device", "cuda",
+            "--num_envs", "32", "--log_interval", "40", "--total_timesteps", "1280",
+            "--eval_steps", "1280", "--seed", "0"]
+
+
+def run_cli(algo: str, args):
+    cmd = [sys.executable, "-m", f"cleanmarl_tpu_torch.algos.{algo}"] + args
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     log(f"[cli] {' '.join(cmd[1:])}: rc {proc.returncode} in "
@@ -810,6 +834,207 @@ def run_cli():
         log(f"[cli] {line}")
     if proc.returncode != 0:
         fail(f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the off-policy slice, QMIX and VDN on MPE simple_spread
+# ---------------------------------------------------------------------------
+
+# the JAX package's validated recipes (scripts/validate_baselines.py:37-59,
+# qmix_spread and vdn_spread), copied, not imported; random weights, seed 0
+OFFPOLICY = {
+    "qmix": dict(env_type="mpe", env_name="simple_spread_v3", num_envs=32,
+                 total_timesteps=2_000_000, buffer_size=5_000, batch_size=32,
+                 exploration_fraction=0.1, hidden_dim=64, log_interval=40,
+                 seed=0, verbose=False),
+    "vdn": dict(env_type="mpe", env_name="simple_spread_v3", num_envs=32,
+                total_timesteps=2_000_000, buffer_size=100_000, batch_size=4,
+                learning_starts=10_000, train_freq=1, exploration_fraction=0.1,
+                hidden_dim=64, log_interval=200, seed=0, verbose=False),
+}
+# (warm-up blocks, timed blocks): VDN's updates start after 10,000
+# transitions, inside its second block
+OFFPOLICY_BLOCKS = {"qmix": (1, 3), "vdn": (2, 3)}
+MPE_CYCLES = 25     # every simple_spread env truncates at step 25, none terminates
+
+
+def _offpolicy(name, device):
+    """(module, config) of one off-policy recipe on ``device``."""
+    from cleanmarl_tpu_torch.algos import qmix, vdn
+
+    mod, cls = {"qmix": (qmix, qmix.QMIXConfig), "vdn": (vdn, vdn.VDNConfig)}[name]
+    return mod, cls(**OFFPOLICY[name], device=device)
+
+
+def _sample(name, cfg, runner, generator):
+    """The arguments ``meta["update"]`` takes after the params: a sampled
+    batch (and QMIX's step mask)."""
+    if name == "qmix":
+        return runner.ring.sample(generator, cfg.batch_size)
+    return (runner.buffer.sample(generator, cfg.batch_size * cfg.num_envs),)
+
+
+def check_offpolicy_updates_against_cpu():
+    """One QMIX and one VDN update on the card (float32, TF32 off) equal the
+    same update on the CPU, from the same params, Adam state and batch:
+    the recipe's replay after 25 iterations on the CPU (one episode per
+    env; QMIX has run its first 32 updates)."""
+    import torch
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+
+    def to_cuda(x):
+        return x.cuda() if isinstance(x, torch.Tensor) else x
+    for name in OFFPOLICY:
+        mod, cfg_c = _offpolicy(name, "cpu")
+        init_c, _, _, meta_c = mod.make_train(cfg_c)
+        _, _, _, meta_g = mod.make_train(_offpolicy(name, "cuda")[1])
+        runner = init_c(torch.Generator().manual_seed(0))
+        for _ in range(MPE_CYCLES):
+            runner, _ = meta_c["train_iter"](runner)
+        args = _sample(name, cfg_c, runner, torch.Generator().manual_seed(1))
+        state = (runner.params, runner.target_params, runner.opt_state)
+        p_c, _, loss_c, gn_c = meta_c["update"](*state, *args)
+        p_g, _, loss_g, gn_g = meta_g["update"](*tree_map(to_cuda, state),
+                                                *tree_map(to_cuda, args))
+        pairs = [(loss_g, loss_c), (gn_g, gn_c)] + list(zip(tree_leaves(p_g),
+                                                            tree_leaves(p_c)))
+        worst = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        if not all(torch.allclose(a.cpu(), b, **PPO_TOL) for a, b in pairs):
+            fail(f"{name} update on the card disagrees with the CPU (max |diff| {worst})")
+        log(f"[offpolicy] one {name} update, card vs CPU: loss {float(loss_g):.6f} vs "
+            f"{float(loss_c):.6f}, grad norm {float(gn_g):.6f} vs {float(gn_c):.6f}, "
+            f"max |diff| over loss, norm and params {worst:.3e}")
+
+
+def offpolicy_clock(name, cfg, step: int) -> int:
+    """Updates the recipe owes after ``step`` iterations. QMIX: one per
+    completed episode (train_freq 1), from the first commit on (its 32
+    episodes fill the batch of 32). VDN: one every ``train_freq``
+    iterations once more than ``learning_starts`` transitions are stored."""
+    if name == "qmix":
+        return cfg.num_envs * (step // MPE_CYCLES) // cfg.train_freq
+    first = cfg.learning_starts // cfg.num_envs + 1
+    return max(0, step // cfg.train_freq - (first - 1) // cfg.train_freq)
+
+
+def profile_block(train_block, runner):
+    """The device busy share of one train_block: one block under
+    ``torch.profiler`` (CUDA activity) for its device time and op count,
+    then unprofiled blocks until one runs as many updates, for its wall
+    time. → (runner, results)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    def block(runner):
+        n0 = runner.num_updates
+        t0 = time.perf_counter()
+        runner, metrics = train_block(runner)
+        to_host(metrics)
+        torch.cuda.synchronize()
+        return runner, time.perf_counter() - t0, runner.num_updates - n0
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner, wall_prof, n_prof = block(runner)
+    kernels = device_kernels(prof)
+    for _ in range(4):
+        runner, wall, n = block(runner)
+        if n == n_prof:
+            break
+    else:
+        fail(f"no unprofiled block ran {n_prof} updates like the profiled one")
+    busy = sum(sec for sec, _ in kernels.values())
+    n_ops = sum(c for _, c in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    return runner, dict(wall_s=wall, wall_profiled_s=wall_prof, device_busy_s=busy,
+                        device_ops=n_ops, updates=n_prof, busy_share=busy / wall,
+                        busy_share_profiled=busy / wall_prof,
+                        top=[dict(name=k, s=v[0], count=v[1]) for k, v in top])
+
+
+def drive_offpolicy(name, counters):
+    """One recipe at full width on the card: warm-up blocks (incl. init),
+    timed blocks, one eval, the episode- or iteration-clock update count,
+    peak memory, the wall time of one update alone, and the busy share of
+    one block. Every kernel count is set to 0 before and read after: this
+    path launches no kernel."""
+    import torch
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    mod, cfg = _offpolicy(name, "cuda")
+    init, train_block, eval_fn, meta = mod.make_train(cfg)
+    n_warm, n_timed = OFFPOLICY_BLOCKS[name]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()       # what earlier phases still hold
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    seen = []
+    t0 = time.perf_counter()
+    runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
+    for _ in range(n_warm):
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+    t1 = time.perf_counter()
+    walls, updates = [], []
+    for _ in range(n_timed):
+        n0, s = runner.num_updates, time.perf_counter()
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+        walls.append(time.perf_counter() - s)
+        updates.append(runner.num_updates - n0)
+    evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
+    torch.cuda.synchronize()
+    launches = {k: v for table in counters for k, v in table.items()}
+    peak = torch.cuda.max_memory_allocated()
+    sps = meta["steps_per_block"] * n_timed / sum(walls)
+    for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
+        if not math.isfinite(v):
+            fail(f"{name}: non-finite metric {k}={v}")
+    want = offpolicy_clock(name, cfg, runner.step)
+    if runner.num_updates != want or seen[-1]["train/num_updates"] != want:
+        fail(f"{name}: {runner.num_updates} updates after {runner.step} iterations, "
+             f"the clock says {want}")
+    if sum(updates) == 0:
+        fail(f"{name}: the timed blocks ran no update")
+    step, num_updates = runner.step, runner.num_updates
+
+    args = _sample(name, cfg, runner, torch.Generator("cuda").manual_seed(2))
+    state = (runner.params, runner.target_params, runner.opt_state)
+    meta["update"](*state, *args)
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for _ in range(50):
+        meta["update"](*state, *args)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - s) / 50 * 1e3
+    env_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (n_timed * cfg.log_interval) * 1e3
+    runner, prof = profile_block(train_block, runner)
+
+    log(f"[{name}] {cfg.env_name}, {cfg.num_envs} envs, {meta['steps_per_block']} env "
+        f"steps per train_block; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
+        f"timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with {updates} updates; "
+        f"env-steps/s {sps:.1f}")
+    log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an iteration "
+        f"(act, env step, replay write) {env_ms:.3f} ms; peak device memory "
+        f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before "
+        f"init; kernel launches on this path {launches}")
+    log(f"[{name}] {num_updates} updates after {step} iterations = the clock's {want}; "
+        f"last block {json.dumps(seen[-1], sort_keys=True)}")
+    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    log(f"[{name}] one block ({prof['updates']} updates): device busy "
+        f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
+        f"{prof['wall_s']:.4f} s unprofiled ({100 * prof['busy_share']:.1f} % busy), "
+        f"{prof['wall_profiled_s']:.4f} s under the profiler "
+        f"({100 * prof['busy_share_profiled']:.1f} % busy)")
+    for k in prof["top"]:
+        log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
+    return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
+                update_ms=update_ms, iteration_rest_ms=env_ms, peak_mib=peak / 2**20,
+                path_peak_mib=(peak - base) / 2**20,
+                launches=launches, num_updates=num_updates, step=step,
+                metrics=seen[-1], eval=evals, block_profile=prof)
 
 
 def main():
@@ -859,8 +1084,13 @@ def main():
     counters = (returns_kernel.LAUNCHES, gru_kernel.LAUNCHES)
     main_path = drive_main_path(counters)
 
-    # phase 4: the CLI
-    run_cli()
+    # phase 4: the CLIs
+    run_cli("mappo", MAPPO_CLI)
+    run_cli("qmix", QMIX_CLI)
+
+    # phase 5: the off-policy slice (no kernel on its path)
+    check_offpolicy_updates_against_cpu()
+    offpolicy = {name: drive_offpolicy(name, counters) for name in OFFPOLICY}
 
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name], **r)
                for name, r in results.items()]
@@ -868,7 +1098,7 @@ def main():
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                            kernels=kernels, gru_times=gru_times, main_path=main_path,
-                           mma_tf32_tflops=mma_tflops),
+                           mma_tf32_tflops=mma_tflops, offpolicy=offpolicy),
                       f, indent=1, sort_keys=True)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """cleanmarl_tpu_torch: the PyTorch + CUDA port of ``cleanmarl_tpu``.
 
-The module tree mirrors the JAX package (``envs/``, ``core/``, ``ops/``,
-``algos/``) so each module's counterpart is easy to find. Differences in
-idiom:
+The module tree mirrors the JAX package (``envs/``, ``core/``,
+``buffers/``, ``ops/``, ``algos/``) so each module's counterpart is easy
+to find. Ported: MAPPO on SMAClite, QMIX and VDN on MPE (and every env of
+those families). Differences in idiom:
 
 - envs are natively batched over a leading ``num_envs`` axis (no vmap);
 - randomness comes from explicit ``torch.Generator``s, not PRNG keys;

@@ -35,7 +35,7 @@ from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.core.evaluation import make_evaluator
 from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
-from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+from cleanmarl_tpu_torch.core.params import value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.base import VecEnv, categorical
@@ -285,13 +285,6 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
         return runner, traj, h0
 
     # ------------------------------------------------------------------
-    def _grads(loss_fn, params, mb):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        live = tree_unflatten(params, leaves)
-        loss, aux = loss_fn(live, mb)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tuple(a.detach() for a in aux), tree_unflatten(params, grads)
-
     def ppo_update(runner: PPORunnerState, traj, h0):
         with torch.no_grad():
             alive = alive_mask(traj["avail"]) if cfg.death_masking else None
@@ -366,9 +359,9 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
                 sl = slice(i * mb_size, (i + 1) * mb_size)
                 mb = {k: v[:, sl] for k, v in full.items()}
                 mb["h0"] = h0[sl]
-                a_loss, (entropy, kl, clipped), a_grads = _grads(actor_loss_fn,
-                                                                  a_params, mb)
-                c_loss, _, c_grads = _grads(critic_loss_fn, c_params, mb)
+                a_loss, (entropy, kl, clipped), a_grads = value_and_grad(
+                    actor_loss_fn, a_params, mb)
+                c_loss, _, c_grads = value_and_grad(critic_loss_fn, c_params, mb)
                 with torch.no_grad():
                     a_gnorm = nets.global_norm(a_grads)
                     c_gnorm = nets.global_norm(c_grads)

@@ -85,6 +85,10 @@ def run_training(
         if (block + 1) % eval_every == 0:
             eval_metrics = to_host(eval_fn(eval_params(runner), eval_gen))
             logger.log(eval_metrics, env_steps)
+            if verbose:
+                print(f"[{algo_name}] eval step={env_steps} ep_reward="
+                      f"{eval_metrics['eval/ep_reward']:.3f} "
+                      f"wall_s={time.time() - t0:.1f}", flush=True)
     if own_logger:
         logger.close()
     return runner, eval_metrics

@@ -1,13 +1,15 @@
 """Functional network core (port of ``cleanmarl_tpu/core/networks.py``,
-the parts MAPPO needs): params are nested dicts of tensors in the JAX
-layout, every forward is a plain function.
+the parts MAPPO, QMIX and VDN need): params are nested dicts of tensors
+in the JAX layout, every forward is a plain function.
 
 - dense ``w`` is ``(in, out)``; ``mlp`` is ``num_layers + 1`` hidden
   Linear+ReLU layers and a Linear head;
 - the GRU keeps fused ``wi (in, 3H)``, ``wh (H, 3H)``, ``bi``, ``bh`` in
   gate order r, z, n (torch ``nn.GRUCell`` semantics: the reset gate
   multiplies the projected hidden contribution);
-- ``rnn`` is fc1 → ReLU → GRU → head.
+- ``rnn`` is fc1 → ReLU → GRU → head;
+- ``mixer`` is the QMIX hypernetwork mixer, ``soft_update`` Polyak
+  averaging of a target tree.
 
 Initialization is orthogonal (QR of a Gaussian, per gate block for the
 GRU) for kernels and zeros for biases, drawn from a ``torch.Generator``.
@@ -19,7 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
-from cleanmarl_tpu_torch.core.params import tree_leaves
+from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
 
 MASK_NEG = -1e9
 
@@ -238,6 +240,47 @@ def rnn_seq_apply(params, h0, x_seq, reset_seq=None, tbptt: int = 0,
         h = h2 if reset_seq is None else torch.where(reset_seq[t], 0.0, h2)
     h_seq = torch.stack(outs)
     return h, dense(params["head"], h_seq, dtype)
+
+
+# ---------------------------------------------------------------------------
+# QMIX monotonic mixing hypernetwork
+# ---------------------------------------------------------------------------
+
+def mixer_init(generator, n_agents: int, state_dim: int, embed_dim: int,
+               hyper_dim: int, device="cpu"):
+    """Hypernetworks from the global state give the mixing weights |W1|
+    (n_agents x embed), b1, |W2| (embed x 1) and b2; ``abs`` keeps Q_tot
+    monotonic in every agent's utility. ``num_layers=0`` still has one
+    hidden layer (state → hyper → out)."""
+    def hyper(out_dim):
+        return mlp_init(generator, state_dim, hyper_dim, out_dim, num_layers=0,
+                        device=device)
+    return {
+        "hw1": hyper(n_agents * embed_dim),
+        "hb1": dense_init(generator, state_dim, embed_dim, gain=1.0, device=device),
+        "hw2": hyper(embed_dim),
+        "hb2": hyper(1),
+    }
+
+
+def mixer_apply(params, agent_qs: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """agent_qs (..., n_agents), state (..., state_dim) → Q_tot (...). The
+    dims come from the weight shapes."""
+    embed_dim = params["hb1"]["b"].shape[0]
+    n_agents = params["hw1"]["head"]["b"].shape[0] // embed_dim
+    w1 = torch.abs(mlp_apply(params["hw1"], state))
+    w1 = w1.reshape(state.shape[:-1] + (n_agents, embed_dim))
+    b1 = dense(params["hb1"], state)
+    w2 = torch.abs(mlp_apply(params["hw2"], state))
+    b2 = mlp_apply(params["hb2"], state)
+    hidden = torch.nn.functional.elu(torch.einsum("...a,...ae->...e", agent_qs, w1) + b1)
+    return torch.einsum("...e,...e->...", hidden, w2) + b2[..., 0]
+
+
+def soft_update(target_params, online_params, polyak: float):
+    """Polyak averaging θ' ← (1 − τ)·θ' + τ·θ over the whole tree."""
+    return tree_map(lambda t, o: (1.0 - polyak) * t + polyak * o,
+                    target_params, online_params)
 
 
 def global_norm(tree) -> torch.Tensor:

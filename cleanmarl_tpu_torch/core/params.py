@@ -1,5 +1,6 @@
-"""Parameter trees: nested dicts/lists/tuples of tensors in the JAX
-package's layout, plus the bridge from the JAX package's params.
+"""Parameter trees: nested dicts/lists/tuples (and dataclass records such
+as ``types.Transition``) of tensors in the JAX package's layout, plus the
+bridge from the JAX package's params.
 
 ``from_numpy_tree`` takes the JAX params as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and returns the port's params;
@@ -9,6 +10,7 @@ thing.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List
 
 import numpy as np
@@ -21,6 +23,10 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
         out = [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
         return type(tree)(out)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
     return fn(tree, *rest)
 
 
@@ -33,6 +39,15 @@ def tree_leaves(tree) -> List[Any]:
 def tree_unflatten(tree, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def value_and_grad(loss_fn: Callable, params, *args):
+    """``loss_fn(params, *args) -> (loss, aux)`` → (loss, aux, grads), all
+    detached; ``grads`` has the tree shape of ``params``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tuple(a.detach() for a in aux), tree_unflatten(params, grads)
 
 
 def from_numpy_tree(tree, device) -> Any:

@@ -29,3 +29,21 @@ class TimeStep:
 
     def replace(self, **kw) -> "TimeStep":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Transition:
+    """A replay transition with the team reward and a shared done flag.
+    Shapes per row: obs (n_agents, obs_dim), state (state_dim,), avail
+    (n_agents, n_actions) bool, action (n_agents,) int64, reward () f32,
+    done () bool, and the next_* fields like their current ones."""
+
+    obs: torch.Tensor
+    state: torch.Tensor
+    avail: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    next_obs: torch.Tensor
+    next_state: torch.Tensor
+    next_avail: torch.Tensor

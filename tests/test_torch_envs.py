@@ -171,8 +171,14 @@ def test_agent_id_wrapper_matches_jax():
 
 
 def test_registry_and_unported_options_raise():
-    for env_type in ("mpe", "lbf", "pursuit", "pz"):
+    for env_type in ("lbf", "pursuit"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            treg.make(env_type, "x")
+    # pz routes its mpe family (the default) to MPE; other families are host envs
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, Slice 6"):
+        treg.make("pz", "pursuit_v4", env_family="sisl")
+    for env_type in ("mpe", "pz"):
+        with pytest.raises(ValueError, match="unknown MPE scenario"):
             treg.make(env_type, "x")
     with pytest.raises(ValueError):
         treg.make("nope", "x")

@@ -14,7 +14,11 @@ import torch
 from cleanmarl_tpu.algos import mappo as jmappo
 from cleanmarl_tpu.algos.ppo_common import PPOConfig as JaxPPOConfig
 from cleanmarl_tpu_torch.algos import mappo as tmappo
+from cleanmarl_tpu_torch.algos import qmix as tqmix
+from cleanmarl_tpu_torch.algos import vdn as tvdn
 from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
+from cleanmarl_tpu_torch.algos.qmix import QMIXConfig
+from cleanmarl_tpu_torch.algos.vdn import VDNConfig
 from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.core.driver import run_training, to_host
 
@@ -90,6 +94,11 @@ def test_cuda_request_raises_without_a_card():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tmappo.make_train(PPOConfig(**TINY))          # device defaults to "cuda"
+    spread = dict(env_type="mpe", env_name="simple_spread_v3", num_envs=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tqmix.make_train(QMIXConfig(**spread))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvdn.make_train(VDNConfig(**spread))
 
 
 @pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
