@@ -35,9 +35,9 @@ Phases, each of which must pass:
    alone, and read the update's device busy share (one update timed
    without the profiler, one profiled for its kernels' device time, the
    λ-return kernel's among them);
-4. run the CLIs (``python -m cleanmarl_tpu_torch.algos.mappo`` and
-   ``...algos.qmix`` on MPE simple_spread) for one short block each, as
-   subprocesses;
+4. run the CLIs (``python -m cleanmarl_tpu_torch.algos.mappo``,
+   ``...algos.qmix`` on MPE simple_spread and ``...algos.qmix_rnn`` on
+   SMAClite 3m) for one short block each, as subprocesses;
 5. the off-policy slice, which launches no kernel: one QMIX and one VDN
    update on the card against the same update on the CPU, then QMIX and
    VDN on MPE simple_spread at the JAX package's validated recipes
@@ -47,7 +47,16 @@ Phases, each of which must pass:
    one update's wall time, peak memory, that the update count equals the
    episode (QMIX) or iteration (VDN) clock, and the device busy share of
    one block (its device time under ``torch.profiler`` against an
-   unprofiled block with as many updates).
+   unprofiled block with as many updates);
+6. recurrent QMIX and VDN on SMAClite 3m, whose update runs K2, K3 and dw
+   at new shapes (phase 2 also holds and times them there: 32 episodes x
+   3 agents at H=64 over T=150, and T=2 after a burn-in of 8, against the
+   scan route and cuDNN's GRU): one update of each of ``qmix_rnn_3m``,
+   ``vdn_rnn_3m`` and ``vdn_rnn_seq_3m`` on the card against the CPU, then
+   ``qmix_rnn_3m`` (episode replay) and ``vdn_rnn_seq_3m`` (sequence
+   replay) at the JAX package's recipes, with the measures of phase 5, the
+   update count against the episode or iteration clock, and the kernel
+   counts (K2, K3 and dw launched; the L2 routes and K1 not).
 
 The line before last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -536,6 +545,96 @@ def check_rnn_seq_apply():
         fail("rnn_seq_apply kernel route disagrees with the scan route")
 
 
+# the recurrent-Q update's GRU (32 sampled episodes or chunks x 3 agents at
+# H=64): whole episodes of T=150 (SMAClite's time limit), chunks of 10
+# steps after a burn-in of 8 (T=2), and that burn-in (T=8, checked only)
+RQ_SHAPES = ((150, 96, 64), (2, 96, 64))
+RQ_BURN_IN_SHAPE = (8, 96, 64)
+RQ_OBS, RQ_ACTIONS = 33, 9          # SMAClite 3m with agent ids
+
+
+def time_rq_routes(T):
+    """The recurrent-Q sequence recomputes at (T, 32 episodes, 3 agents,
+    obs 33, H=64, 9 actions) on the kernel route against the scan route:
+    ``rnn_seq_eval_next`` (values), ``rnn_seq_apply`` (values and every
+    gradient) held at VAL_TOL / GRAD_TOL, then both timed: the target
+    stream and the online forward without gradient, and the online
+    forward + backward. → {name: ms}."""
+    import torch
+    from cleanmarl_tpu_torch.core import networks as nets
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+
+    g = torch.Generator("cuda").manual_seed(T)
+    params = nets.rnn_init(g, RQ_OBS, 64, RQ_ACTIONS, device="cuda")
+    obs = torch.randn(T, 32, 3, RQ_OBS, generator=g, device="cuda")
+    next_obs = torch.randn(T, 32, 3, RQ_OBS, generator=g, device="cuda")
+    h0 = nets.rnn_initial_state((32, 3), 64, device="cuda")
+
+    def eval_next(impl):
+        with torch.no_grad():
+            return nets.rnn_seq_eval_next(params, h0, obs, next_obs, impl=impl)
+
+    def fwd(impl):
+        with torch.no_grad():
+            return nets.rnn_seq_apply(params, h0, obs, impl=impl)[1]
+
+    def fwd_bwd(impl):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        _, q = nets.rnn_seq_apply(tree_unflatten(params, leaves), h0, obs, impl=impl)
+        return [q.detach()], list(torch.autograd.grad((q * q).sum(), leaves))
+
+    ek, es = [eval_next("kernel")], [eval_next("scan")]
+    err_e = max_err(ek, es)
+    (vk, gk_), (vs, gs) = fwd_bwd("kernel"), fwd_bwd("scan")
+    err_v, err_g = max_err(vk, vs), max_err(gk_, gs)
+    log(f"[kernels] recurrent-Q recompute T={T} (32 x 3 agents, H=64), kernel vs scan route: "
+        f"rnn_seq_eval_next err {err_e:.3e}, rnn_seq_apply values err {err_v:.3e} "
+        f"grads err {err_g:.3e} (largest grad {max(float(x.abs().max()) for x in gs):.3e})")
+    if not (close(ek, es, VAL_TOL) and close(vk, vs, VAL_TOL) and close_scaled(gk_, gs, GRAD_TOL)):
+        fail(f"the kernel route of the recurrent-Q recompute disagrees with the scan at T={T}")
+    iters = {"kernel": 10, "scan": 3} if T > 10 else {"kernel": 50, "scan": 20}
+    out = {}
+    for impl, n in iters.items():
+        out[f"eval_next_{impl}_ms"] = time_ms(lambda: eval_next(impl), n)
+        out[f"fwd_{impl}_ms"] = time_ms(lambda: fwd(impl), n)
+        out[f"fwd_bwd_{impl}_ms"] = time_ms(lambda: fwd_bwd(impl), n)
+    log(f"[kernels] recurrent-Q recompute T={T} times (ms, host clock to device end): " + " ".join(
+        f"{k[:-3]}={v:.4f}" for k, v in out.items()))
+    return dict(out, eval_next_err=err_e, values_err=err_v, grads_err=err_g)
+
+
+def check_recurrent_q_shapes(results):
+    """K2, K3 and dw against their plain versions at the recurrent-Q
+    update's shapes (and the burn-in's), their times, bounds and cuDNN's
+    GRU at the same shapes, and the kernel route against the scan route of
+    the sequence recomputes. Adds a ``recurrent_q_shapes`` entry to each
+    tensor-core GRU row of ``results``."""
+    rows = {"gru_seq_fwd": ("fwd", "fwd_library_ms"), "gru_seq_bwd": ("bwd", None),
+            "gru_seq_dw": ("dw", "dw_library_ms")}
+    e = check_gru_shape(*RQ_BURN_IN_SHAPE, seed=8)[0]
+    routes = {}
+    for T, M, H in RQ_SHAPES:
+        e2, ins, hs, rec = check_gru_shape(T, M, H, seed=T)
+        e = {k: max(e[k], e2[k]) for k in e}
+        t = time_gru(T, M, H, ins, hs, rec)
+        bounds = gru_bounds(T, M, H)
+        for name, (k, lib) in rows.items():
+            b = bounds[k]["tc"]
+            entry = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[0],
+                         bound_by=b[1], bound_f32_ms=bounds[k]["f32"][0],
+                         library_ms=t[lib] if lib else None,
+                         us_per_step=t[f"{k}_ms"] * 1e3 / T)
+            if k == "bwd":
+                entry.update(whole_bwd_library_ms=t["bwd_library_ms"],
+                             whole_bwd_ms=t["bwd_ms"] + t["dw_ms"])
+            results[name].setdefault("recurrent_q_shapes", {})[f"T{T}_M{M}_H{H}"] = entry
+        routes[T] = time_rq_routes(T)
+    for name, key in (("gru_seq_fwd", "fwd"), ("gru_seq_bwd", "bwd"), ("gru_seq_dw", "dw")):
+        worst = max(e[key], e["grads"]) if key == "bwd" else e[key]
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
+    return routes
+
+
 def mma_ceiling():
     """TFLOP/s of TF32 mma.sync m16n8k8 on 132 blocks of 8 and 16 warps
     (csrc/mma_rate.cu): the ceiling of the tensor-core GRU kernels, which
@@ -917,11 +1016,14 @@ def offpolicy_clock(name, cfg, step: int) -> int:
     return max(0, step // cfg.train_freq - (first - 1) // cfg.train_freq)
 
 
-def profile_block(train_block, runner):
+def profile_block(train_block, runner, update_ms=None):
     """The device busy share of one train_block: one block under
     ``torch.profiler`` (CUDA activity) for its device time and op count,
     then unprofiled blocks until one runs as many updates, for its wall
-    time. → (runner, results)."""
+    time. Where the updates per block vary (the episode clock), pass one
+    update's wall ``update_ms``: if none of four blocks matches, the last
+    one's wall is moved by the difference in updates times ``update_ms``
+    (``adjusted`` in the results). → (runner, results)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from cleanmarl_tpu_torch.core.driver import to_host
@@ -937,16 +1039,20 @@ def profile_block(train_block, runner):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         runner, wall_prof, n_prof = block(runner)
     kernels = device_kernels(prof)
+    adjusted = False
     for _ in range(4):
         runner, wall, n = block(runner)
         if n == n_prof:
             break
     else:
-        fail(f"no unprofiled block ran {n_prof} updates like the profiled one")
+        if update_ms is None:
+            fail(f"no unprofiled block ran {n_prof} updates like the profiled one")
+        wall, adjusted = wall + (n_prof - n) * update_ms / 1e3, True
     busy = sum(sec for sec, _ in kernels.values())
     n_ops = sum(c for _, c in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
     return runner, dict(wall_s=wall, wall_profiled_s=wall_prof, device_busy_s=busy,
+                        adjusted=adjusted,
                         device_ops=n_ops, updates=n_prof, busy_share=busy / wall,
                         busy_share_profiled=busy / wall_prof,
                         top=[dict(name=k, s=v[0], count=v[1]) for k, v in top])
@@ -1037,6 +1143,220 @@ def drive_offpolicy(name, counters):
                 metrics=seen[-1], eval=evals, block_profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: recurrent QMIX and VDN on SMAClite 3m (K2, K3 and dw on the path)
+# ---------------------------------------------------------------------------
+
+# the JAX package's validated recipes (scripts/validate_baselines.py:127-153
+# qmix_rnn_3m and vdn_rnn_3m, :195-207 vdn_rnn_seq_3m), copied, not
+# imported; random weights, seed 0
+_RQ_BASE = dict(env_type="smaclite", env_name="3m", num_envs=64, total_timesteps=2_000_000,
+                batch_size=32, train_freq=1, learning_rate=5e-4, polyak=0.005,
+                hidden_dim=64, exploration_fraction=0.05, end_e=0.025, log_interval=50,
+                seed=0, verbose=False)
+RECQ = {
+    "qmix_rnn_3m": dict(_RQ_BASE, mixing="qmix", buffer_size=5_000, max_updates_per_iter=8),
+    "vdn_rnn_3m": dict(_RQ_BASE, mixing="vdn", buffer_size=5_000, max_updates_per_iter=8),
+    "vdn_rnn_seq_3m": dict(_RQ_BASE, mixing="vdn", replay="sequence", seq_length=10,
+                           burn_in=8, buffer_size=20_000),
+}
+RECQ_DRIVEN = ("qmix_rnn_3m", "vdn_rnn_seq_3m")   # vdn_rnn_3m differs by the mixer only
+RECQ_TIMED_BLOCKS = 2
+# one train_block of the qmix_rnn_3m recipe's width (50 iterations of 64 envs)
+QMIX_RNN_CLI = ["--env_type", "smaclite", "--env_name", "3m", "--device", "cuda",
+                "--num_envs", "64", "--buffer_size", "500", "--batch_size", "32",
+                "--hidden_dim", "64", "--max_updates_per_iter", "8", "--log_interval", "50",
+                "--total_timesteps", "3200", "--eval_steps", "3200", "--seed", "0"]
+
+
+def _recq_batch(cfg, env, seed):
+    """Random records of the recipe's widths on the CPU: (B, T_max)
+    episodes and their step mask, or (B, L) chunks → ``meta["update"]`` or
+    ``meta["update_seq"]``'s arguments after the params."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    seq = cfg.replay == "sequence"
+    B, T, n, A = cfg.batch_size, cfg.seq_length if seq else env.episode_limit, \
+        env.n_agents, env.n_actions
+
+    def avail():
+        a = rng.rand(B, T, n, A) < 0.7
+        a[..., 1] = True
+        return torch.as_tensor(a)
+    av = avail()
+    batch = {"obs": rng.randn(B, T, n, env.obs_dim), "state": rng.randn(B, T, env.state_dim),
+             "reward": rng.randn(B, T), "next_obs": rng.randn(B, T, n, env.obs_dim),
+             "next_state": rng.randn(B, T, env.state_dim)}
+    batch = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in batch.items()}
+    batch.update(action=torch.argmax(torch.as_tensor(rng.rand(B, T, n, A)) * av, -1),
+                 done=torch.as_tensor(rng.rand(B, T) < 0.05), next_avail=avail())
+    if seq:
+        return (batch,)
+    lengths = rng.randint(10, T + 1, (B, 1))
+    return batch, torch.as_tensor((np.arange(T)[None] < lengths).astype(np.float32))
+
+
+def _recq(name, device):
+    from cleanmarl_tpu_torch.algos import recurrent_q
+
+    cfg = recurrent_q.RecurrentQConfig(**RECQ[name], device=device)
+    return cfg, recurrent_q.make_train(cfg)
+
+
+def check_recq_updates_against_cpu():
+    """One update of each recipe on the card (kernel route, TF32 off)
+    equals the same update on the CPU (scan route), from the same params,
+    Adam state (after one update on the CPU) and batch of the recipe's
+    widths: 32 episodes padded to 150 steps, or 32 chunks of 10 with a
+    burn-in of 8."""
+    import torch
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+    from cleanmarl_tpu_torch.envs import registry
+
+    def to_cuda(x):
+        return x.cuda() if isinstance(x, torch.Tensor) else x
+    env = registry.make("smaclite", "3m", agent_ids=True)
+    for name in RECQ:
+        cfg, (init_c, _, _, meta_c) = _recq(name, "cpu")
+        _, (_, _, _, meta_g) = _recq(name, "cuda")
+        if (meta_c["gru_impl"], meta_g["gru_impl"]) != ("scan", "kernel"):
+            fail(f"{name}: GRU routes {meta_c['gru_impl']} (CPU) / {meta_g['gru_impl']} (card)")
+        key = "update_seq" if cfg.replay == "sequence" else "update"
+        runner = init_c(torch.Generator().manual_seed(0))
+        p, o, _, _ = meta_c[key](runner.params, runner.target_params, runner.opt_state,
+                                 *_recq_batch(cfg, env, 0))
+        args = _recq_batch(cfg, env, 1)
+        state = (p, runner.target_params, o)
+        p_c, _, loss_c, gn_c = meta_c[key](*state, *args)
+        p_g, _, loss_g, gn_g = meta_g[key](*tree_map(to_cuda, state), *tree_map(to_cuda, args))
+        pairs = [(loss_g, loss_c), (gn_g, gn_c)] + list(zip(tree_leaves(p_g), tree_leaves(p_c)))
+        worst = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        if not all(torch.allclose(a.cpu(), b, **PPO_TOL) for a, b in pairs):
+            fail(f"{name} update on the card disagrees with the CPU (max |diff| {worst})")
+        log(f"[recq] one {name} update, card (kernels) vs CPU (scan): loss {float(loss_g):.6f} "
+            f"vs {float(loss_c):.6f}, grad norm {float(gn_g):.6f} vs {float(gn_c):.6f}, "
+            f"max |diff| over loss, norm and params {worst:.3e}")
+
+
+def recq_clock(cfg, runner, origin) -> int:
+    """Updates the recipe owes: one per ``train_freq`` crossings of its
+    clock (completed episodes, or iterations with sequence replay) from
+    the iteration whose commit first made the ring hold a batch on;
+    ``origin`` is (step, episodes) just before that iteration."""
+    seq = cfg.replay == "sequence"
+    now, before = (runner.step, origin[0]) if seq else (runner.episodes, origin[1])
+    return now // cfg.train_freq - before // cfg.train_freq
+
+
+def drive_recq(name, counters):
+    """One recipe at full width on the card: warm-up blocks (iteration by
+    iteration, to find where the ring first holds a batch) until updates
+    run, timed blocks, one eval, the clock's update count, the path's own
+    peak memory, one update's wall time alone, the busy share of one
+    block; every kernel count set to 0 before init and read after eval:
+    K2, K3 and dw must have launched, the L2 routes and K1 not."""
+    import torch
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    cfg, (init, train_block, eval_fn, meta) = _recq(name, "cuda")
+    seq = cfg.replay == "sequence"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    t0 = time.perf_counter()
+    runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
+    origin, n_warm = None, 0
+    while origin is None or runner.num_updates == 0:
+        for _ in range(cfg.log_interval):
+            before = (runner.step, runner.episodes)
+            runner, _ = meta["train_iter"](runner)
+            if origin is None and runner.ring.size >= cfg.batch_size:
+                origin = before
+        runner = runner.replace(stats=runner.stats.flush())
+        n_warm += 1
+        if n_warm > 6:
+            fail(f"{name}: no update after {n_warm} warm-up blocks")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    walls, updates, seen = [], [], []
+    for _ in range(RECQ_TIMED_BLOCKS):
+        n0, s = runner.num_updates, time.perf_counter()
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+        walls.append(time.perf_counter() - s)
+        updates.append(runner.num_updates - n0)
+    evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
+    torch.cuda.synchronize()
+    launches = {k: v for table in counters for k, v in table.items()}
+    peak = torch.cuda.max_memory_allocated()
+    sps = meta["steps_per_block"] * RECQ_TIMED_BLOCKS / sum(walls)
+    for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
+        if not math.isfinite(v):
+            fail(f"{name}: non-finite metric {k}={v}")
+    for k in ("gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw"):
+        if launches[k] <= 0:
+            fail(f"{name}: kernel {k} was not launched on this path")
+    for k in ("gru_seq_fwd_l2", "gru_seq_bwd_l2", "lambda_returns"):
+        if launches[k] != 0:
+            fail(f"{name}: {k} launched {launches[k]} times on a path that must not take it")
+    want = recq_clock(cfg, runner, origin)
+    owed = runner.num_updates + runner.update_debt
+    if owed != want or seen[-1]["train/num_updates"] != runner.num_updates:
+        fail(f"{name}: {runner.num_updates} updates + {runner.update_debt} debt after "
+             f"{runner.step} iterations and {runner.episodes} episodes, the clock says {want}")
+    if sum(updates) == 0:
+        fail(f"{name}: the timed blocks ran no update")
+    step, episodes, num_updates, debt = (runner.step, runner.episodes, runner.num_updates,
+                                         runner.update_debt)
+
+    key = "update_seq" if seq else "update"
+    args = runner.ring.sample(torch.Generator("cuda").manual_seed(2), cfg.batch_size)
+    args = (args,) if seq else args
+    state = (runner.params, runner.target_params, runner.opt_state)
+    meta[key](*state, *args)
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for _ in range(20):
+        meta[key](*state, *args)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - s) / 20 * 1e3
+    rest_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (
+        RECQ_TIMED_BLOCKS * cfg.log_interval) * 1e3
+    runner, prof = profile_block(train_block, runner, update_ms=update_ms)
+
+    per_update = {k: launches[k] / num_updates for k in ("gru_seq_fwd", "gru_seq_bwd",
+                                                         "gru_seq_dw")}
+    log(f"[{name}] smaclite 3m, {cfg.num_envs} envs, {meta['steps_per_block']} env steps per "
+        f"train_block, GRU route {meta['gru_impl']!r}; warm-up {n_warm} block(s) (incl. init) "
+        f"{t1 - t0:.3f} s; timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with "
+        f"{updates} updates; env-steps/s {sps:.1f}")
+    log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an iteration (act, "
+        f"env step, replay write, the sync) {rest_ms:.3f} ms; peak device memory "
+        f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**20:.1f} MiB held before init")
+    log(f"[{name}] kernel launches {launches} ({per_update} per update)")
+    log(f"[{name}] {num_updates} updates + {debt} debt after {step} iterations and "
+        f"{episodes} episodes = the clock's {want} (from (step, episodes) {origin}); last block "
+        f"{json.dumps(seen[-1], sort_keys=True)}")
+    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    log(f"[{name}] one block ({prof['updates']} updates): device busy "
+        f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
+        f"{prof['wall_s']:.4f} s unprofiled{' (adjusted)' if prof['adjusted'] else ''} "
+        f"({100 * prof['busy_share']:.1f} % busy), {prof['wall_profiled_s']:.4f} s under "
+        f"the profiler ({100 * prof['busy_share_profiled']:.1f} % busy)")
+    for k in prof["top"]:
+        log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
+    return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
+                warmup_blocks=n_warm, update_ms=update_ms, iteration_rest_ms=rest_ms,
+                path_peak_gib=(peak - base) / 2**30, launches=launches,
+                launches_per_update=per_update, num_updates=num_updates, update_debt=debt,
+                step=step, clock=want, metrics=seen[-1], eval=evals, block_profile=prof)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write all results to this JSON file")
@@ -1059,7 +1379,7 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build_all()
     log(f"[build] {len(built)} sources in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(k + (' cached' if v['cached'] else '') for k, v in built.items())})")
@@ -1078,6 +1398,7 @@ def main():
     gru_times = check_gru(results)
     mma_tflops = mma_ceiling()
     check_rnn_seq_apply()
+    rq_routes = check_recurrent_q_shapes(results)
 
     # phase 3: the main path
     check_update_against_cpu()
@@ -1087,19 +1408,30 @@ def main():
     # phase 4: the CLIs
     run_cli("mappo", MAPPO_CLI)
     run_cli("qmix", QMIX_CLI)
+    run_cli("qmix_rnn", QMIX_RNN_CLI)
 
     # phase 5: the off-policy slice (no kernel on its path)
     check_offpolicy_updates_against_cpu()
     offpolicy = {name: drive_offpolicy(name, counters) for name in OFFPOLICY}
 
-    kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name], **r)
+    # phase 6: recurrent QMIX and VDN on SMAClite 3m
+    t6 = time.perf_counter()
+    check_recq_updates_against_cpu()
+    recq = {name: drive_recq(name, counters) for name in RECQ_DRIVEN}
+    log(f"[recq] phase 6 in {time.perf_counter() - t6:.1f} s")
+
+    by_path = {"mappo": main_path["launches"], **{k: v["launches"] for k, v in recq.items()}}
+    kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
+                    launches_by_path={p: c[name] for p, c in by_path.items()}, **r)
                for name, r in results.items()]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                            kernels=kernels, gru_times=gru_times, main_path=main_path,
-                           mma_tf32_tflops=mma_tflops, offpolicy=offpolicy),
+                           mma_tf32_tflops=mma_tflops, offpolicy=offpolicy,
+                           recurrent_q_routes=rq_routes, recurrent_q=recq),
                       f, indent=1, sort_keys=True)
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
 """Algorithm implementations of the port, one module per algorithm, on
 top of the shared envs/core/buffers/ops packages. Ported so far: MAPPO
-(feed-forward and recurrent) through ``ppo_common``, QMIX (``qmix``) and
-VDN (``vdn``)."""
+(feed-forward and recurrent) through ``ppo_common``, QMIX (``qmix``),
+VDN (``vdn``), and recurrent QMIX and VDN with episode or sequence
+replay through ``recurrent_q`` (CLIs ``qmix_rnn`` and ``vdn_rnn``)."""

@@ -87,7 +87,8 @@ def run_training(
             logger.log(eval_metrics, env_steps)
             if verbose:
                 print(f"[{algo_name}] eval step={env_steps} ep_reward="
-                      f"{eval_metrics['eval/ep_reward']:.3f} "
+                      f"{eval_metrics['eval/ep_reward']:.3f} battle_won="
+                      f"{eval_metrics['eval/battle_won']:.4f} "
                       f"wall_s={time.time() - t0:.1f}", flush=True)
     if own_logger:
         logger.close()

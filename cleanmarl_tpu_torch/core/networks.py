@@ -1,13 +1,16 @@
 """Functional network core (port of ``cleanmarl_tpu/core/networks.py``,
-the parts MAPPO, QMIX and VDN need): params are nested dicts of tensors
-in the JAX layout, every forward is a plain function.
+the parts MAPPO, QMIX, VDN and their recurrent forms need): params are
+nested dicts of tensors in the JAX layout, every forward is a plain
+function.
 
 - dense ``w`` is ``(in, out)``; ``mlp`` is ``num_layers + 1`` hidden
   Linear+ReLU layers and a Linear head;
 - the GRU keeps fused ``wi (in, 3H)``, ``wh (H, 3H)``, ``bi``, ``bh`` in
   gate order r, z, n (torch ``nn.GRUCell`` semantics: the reset gate
   multiplies the projected hidden contribution);
-- ``rnn`` is fc1 → ReLU → GRU → head;
+- ``rnn`` is fc1 → ReLU → GRU → head; ``rnn_seq_apply`` and
+  ``rnn_seq_eval_next`` run it over a time-major sequence, on the CUDA
+  kernels or as a scan (``resolve_gru_impl``);
 - ``mixer`` is the QMIX hypernetwork mixer, ``soft_update`` Polyak
   averaging of a target tree.
 
@@ -148,11 +151,12 @@ def gru_input_proj(params, x, dtype=None):
     return matmul(z, params["gru"]["wi"], dtype) + params["gru"]["bi"]
 
 
-def _rnn_seq_apply_kernel(params, h0, x_seq, reset_seq):
-    """Kernel path of ``rnn_seq_apply`` (ops/gru_kernel.py): the whole
-    time loop runs in one launch per direction. The batch dims flatten
-    to M rows; the JAX path pads M to a multiple of 8 for the TPU's
-    sublanes, while the CUDA kernels mask a ragged last row tile
+def _gru_seq_kernel(params, h0, x_seq, reset_seq):
+    """The GRU of fc1→GRU over a time-major ``x_seq`` on the kernels
+    (ops/gru_kernel.py): the whole time loop runs in one launch per
+    direction → (h_final, h_seq (T, ..., H)), before the head. The batch
+    dims flatten to M rows; the JAX path pads M to a multiple of 8 for the
+    TPU's sublanes, while the CUDA kernels mask a ragged last row tile
     themselves, so no padding is needed."""
     from cleanmarl_tpu_torch.ops.gru_kernel import gru_seq
 
@@ -170,8 +174,13 @@ def _rnn_seq_apply_kernel(params, h0, x_seq, reset_seq):
     h_final, h_seq = gru_seq(params["gru"]["wh"], params["gru"]["bh"],
                              h0.reshape(m0, H), gi.reshape(T, m0, 3 * H),
                              keep.contiguous())
-    h_final = h_final.reshape(tuple(batch_shape) + (H,))
-    h_seq = h_seq.reshape((T,) + tuple(batch_shape) + (H,))
+    return (h_final.reshape(tuple(batch_shape) + (H,)),
+            h_seq.reshape((T,) + tuple(batch_shape) + (H,)))
+
+
+def _rnn_seq_apply_kernel(params, h0, x_seq, reset_seq):
+    """Kernel path of ``rnn_seq_apply``."""
+    h_final, h_seq = _gru_seq_kernel(params, h0, x_seq, reset_seq)
     return h_final, dense(params["head"], h_seq)
 
 
@@ -183,14 +192,20 @@ def resolve_gru_impl(impl: str, hidden_dim: int, tbptt: int = 0,
     """Resolve a GRU sequence route → "kernel" | "scan".
 
     ``xla``/``pallas`` are accepted as aliases of ``scan``/``kernel`` so
-    JAX command lines run unchanged. ``auto`` takes the CUDA kernel on a
-    CUDA device at every width the kernels take
+    JAX command lines run unchanged. ``auto`` takes the CUDA kernels on a
+    CUDA device at every width they take
     (``ops/gru_kernel.py:kernel_supports``), and the scan at any other
-    width, with ``tbptt > 0`` or with bf16 operands, which the kernel does
-    not take (as in the JAX package); on the CPU it takes the scan. No H100
-    crossover has been measured yet, so among the widths the kernels take
-    the rule does not depend on ``hidden_dim``. An explicit ``kernel``
-    still raises for a width the kernels refuse.
+    width, with ``tbptt > 0`` or with bf16 operands, which the kernels do
+    not take (as in the JAX package); on the CPU it takes the scan.
+
+    The kernel route was faster at every shape timed on an NVIDIA H100
+    80GB HBM3 at its 700 W limit (``chip_smoke.py``, PERF.md §6), so the
+    rule has no crossover in T or M: MAPPO's actor (T=60, M=3072, H=128)
+    and the recurrent-Q recomputes at M=96, H=64, where forward + backward
+    took 2.32 ms against the scan's 106.9 at T=150 and 2.42 against 3.28
+    at T=2 (the scan's host launches cost more than the kernels' device
+    time even at two steps).
+    An explicit ``kernel`` still raises for a width the kernels refuse.
     """
     from cleanmarl_tpu_torch.ops.gru_kernel import kernel_supports
 
@@ -240,6 +255,44 @@ def rnn_seq_apply(params, h0, x_seq, reset_seq=None, tbptt: int = 0,
         h = h2 if reset_seq is None else torch.where(reset_seq[t], 0.0, h2)
     h_seq = torch.stack(outs)
     return h, dense(params["head"], h_seq, dtype)
+
+
+def rnn_seq_eval_next(params, h0, obs_seq, next_obs_seq, dtype=None, impl: str = "scan"):
+    """Target evaluation of the off-policy recurrent algorithms: advance
+    the hidden stream on ``obs_t`` and evaluate the head one GRU step
+    ahead on ``next_obs_t`` (within an episode next_obs_t == obs_{t+1};
+    at a terminal step it is the stored final observation). Returns
+    ``out_seq (T, ..., out_dim)``.
+
+    The one-step-ahead state is never carried, so the kernel route is one
+    K2 forward over ``obs_seq`` (no reset) and then one GRU step from
+    every ``h_t`` at once on the projected ``next_obs_seq``: two launches
+    where the scan takes two cells per step. The arithmetic is the scan's;
+    only the order of the float32 sums differs. The scan route also takes
+    ``dtype=torch.bfloat16``, which the kernel route refuses.
+    """
+    impl = _IMPL_ALIASES.get(impl, impl)
+    if impl not in ("scan", "kernel"):
+        raise ValueError(f"impl must be scan|kernel, got {impl!r}")
+    if impl == "kernel" and dtype is not None:
+        raise ValueError("impl='kernel' does not support a reduced compute dtype "
+                         "(use the scan path for bfloat16 matmuls)")
+    gi_next = gru_input_proj(params, next_obs_seq, dtype)
+    if impl == "kernel":
+        _, h_seq = _gru_seq_kernel(params, h0, obs_seq, None)
+        h_eval = gru_apply_pre(params["gru"], h_seq, gi_next)
+    else:
+        gi_obs = gru_input_proj(params, obs_seq, dtype)
+        h, evals = h0, []
+        for t in range(gi_obs.shape[0]):
+            h = gru_apply_pre(params["gru"], h, gi_obs[t], dtype)
+            evals.append(gru_apply_pre(params["gru"], h, gi_next[t], dtype))
+        h_eval = torch.stack(evals)
+    return dense(params["head"], h_eval, dtype)
+
+
+def rnn_initial_state(batch_shape, hidden_dim: int, device="cpu") -> torch.Tensor:
+    return torch.zeros(tuple(batch_shape) + (hidden_dim,), device=device)
 
 
 # ---------------------------------------------------------------------------

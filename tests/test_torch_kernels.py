@@ -377,13 +377,14 @@ def test_returns_kernel_is_bitwise_deterministic_on_card(shape, per_env):
                                    (60, 3072, 128), (8, 100, 256),
                                    (4, 40, 512), (60, 3077, 128),
                                    (7, 33, 32), (6, 50, 64), (5, 45, 96),
-                                   (5, 20, 100)])
+                                   (5, 20, 100), (150, 96, 64), (2, 96, 64)])
 def test_gru_kernels_match_plain_on_card(T, M, H):
     """Each kernel against its plain version, at the test shapes, the main
     path's (T=60, M=3072, H=128), a ragged one that cuts the row tiles and
-    the dw slabs (M=3077, R=184,620), every tensor-core width, and widths of
-    the L2 routes (8, 16, 100, 256, 512); each recurrence goes through the
-    route of its width."""
+    the dw slabs (M=3077, R=184,620), every tensor-core width, widths of
+    the L2 routes (8, 16, 100, 256, 512), and the recurrent-Q update's
+    (32 episodes x 3 agents at H=64: whole episodes of T=150, chunks after
+    burn-in of T=2); each recurrence goes through the route of its width."""
     _card()
     wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=H, device="cuda")
     fwd = gru_kernel.fwd_route(H)
@@ -432,3 +433,25 @@ def test_gru_seq_fwd_is_bitwise_deterministic_on_card(T, M, H):
     second = gru_kernel.gru_seq_fwd(*ins)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [150, 2, 8])
+def test_rnn_seq_eval_next_kernel_route_matches_scan_on_card(T):
+    """The recurrent-Q target stream at the update's shape (32 episodes x 3
+    agents, obs 33, H=64, 9 actions): one K2 forward and one batched GRU
+    step against the scan of two cells per step; values at 1e-5."""
+    _card()
+    from cleanmarl_tpu_torch.core import networks as nets
+
+    g = torch.Generator("cuda").manual_seed(T)
+    params = nets.rnn_init(g, 33, 64, 9, device="cuda")
+    obs = torch.randn(T, 32, 3, 33, generator=g, device="cuda")
+    next_obs = torch.randn(T, 32, 3, 33, generator=g, device="cuda")
+    h0 = nets.rnn_initial_state((32, 3), 64, device="cuda")
+    n0 = gru_kernel.LAUNCHES["gru_seq_fwd"]
+    with torch.no_grad():
+        got = nets.rnn_seq_eval_next(params, h0, obs, next_obs, impl="kernel")
+        want = nets.rnn_seq_eval_next(params, h0, obs, next_obs, impl="scan")
+    assert gru_kernel.LAUNCHES["gru_seq_fwd"] == n0 + 1
+    torch.testing.assert_close(got, want, atol=VAL_TOL, rtol=0)
