@@ -56,7 +56,19 @@ Phases, each of which must pass:
    ``qmix_rnn_3m`` (episode replay) and ``vdn_rnn_seq_3m`` (sequence
    replay) at the JAX package's recipes, with the measures of phase 5, the
    update count against the episode or iteration clock, and the kernel
-   counts (K2, K3 and dw launched; the L2 routes and K1 not).
+   counts (K2, K3 and dw launched; the L2 routes and K1 not);
+7. MADDPG, FACMAC and COMA, whose updates run K1 at COMA's shape and K2,
+   K3 and dw on the recurrent actors (phase 2 also holds and times K1
+   over one ``coma_3m`` rollout's reward and end flags broadcast over 3
+   agents, and K2/K3/dw at T=25, M=64 and at T=150, M=192 with that
+   rollout's resets, beside cuDNN's GRU; phase 4 also runs the recurrent
+   ``maddpg`` and ``coma`` CLIs): one update of each of ``maddpg_sl``,
+   ``maddpg_rnn_sl``, ``facmac_sl``, ``coma_3m`` and a recurrent
+   ``coma_3m`` on the card against the CPU, then each driven at its
+   recipe's widths (COMA two rollouts a block) with the measures of
+   phase 5, the update clock (one update per completed episode, or per
+   rollout), and every kernel's launches equal to its launches per update
+   times the updates.
 
 The line before last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -368,7 +380,9 @@ def check_returns(results):
         column_kernel_ms=col_ms, column_kernel_warm_ms=col_warm, bytes=n_bytes)
 
 
-def _gru_inputs(T, M, H, seed):
+def _gru_inputs(T, M, H, seed, keep=None):
+    """Random wh, bh, h0 and gi; ``keep`` (T, M) if given, else random
+    with 5 % resets."""
     import torch
 
     g = torch.Generator("cuda").manual_seed(seed)
@@ -376,11 +390,12 @@ def _gru_inputs(T, M, H, seed):
     bh = torch.randn(3 * H, generator=g, device="cuda") * 0.1
     h0 = torch.randn(M, H, generator=g, device="cuda") * 0.3
     gi = torch.randn(T, M, 3 * H, generator=g, device="cuda")
-    keep = (torch.rand(T, M, generator=g, device="cuda") > 0.05).float()
+    if keep is None:
+        keep = (torch.rand(T, M, generator=g, device="cuda") > 0.05).float()
     return wh, bh, h0, gi, keep
 
 
-def check_gru_shape(T, M, H, seed):
+def check_gru_shape(T, M, H, seed, keep=None):
     """Values and all gradients of the fused GRU (K2 + K3 through the
     autograd.Function) against autograd through the plain scan, and each
     backward kernel against its plain version; each recurrence must go
@@ -388,7 +403,7 @@ def check_gru_shape(T, M, H, seed):
     import torch
     from cleanmarl_tpu_torch.ops import gru_kernel as gk
 
-    ins = _gru_inputs(T, M, H, seed)
+    ins = _gru_inputs(T, M, H, seed, keep)
     g = torch.Generator("cuda").manual_seed(seed + 1)
     w_seq = torch.randn(T, M, H, generator=g, device="cuda")
     w_fin = torch.randn(M, H, generator=g, device="cuda")
@@ -609,30 +624,41 @@ def check_recurrent_q_shapes(results):
     GRU at the same shapes, and the kernel route against the scan route of
     the sequence recomputes. Adds a ``recurrent_q_shapes`` entry to each
     tensor-core GRU row of ``results``."""
-    rows = {"gru_seq_fwd": ("fwd", "fwd_library_ms"), "gru_seq_bwd": ("bwd", None),
-            "gru_seq_dw": ("dw", "dw_library_ms")}
     e = check_gru_shape(*RQ_BURN_IN_SHAPE, seed=8)[0]
     routes = {}
     for T, M, H in RQ_SHAPES:
         e2, ins, hs, rec = check_gru_shape(T, M, H, seed=T)
         e = {k: max(e[k], e2[k]) for k in e}
-        t = time_gru(T, M, H, ins, hs, rec)
-        bounds = gru_bounds(T, M, H)
-        for name, (k, lib) in rows.items():
-            b = bounds[k]["tc"]
-            entry = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[0],
-                         bound_by=b[1], bound_f32_ms=bounds[k]["f32"][0],
-                         library_ms=t[lib] if lib else None,
-                         us_per_step=t[f"{k}_ms"] * 1e3 / T)
-            if k == "bwd":
-                entry.update(whole_bwd_library_ms=t["bwd_library_ms"],
-                             whole_bwd_ms=t["bwd_ms"] + t["dw_ms"])
-            results[name].setdefault("recurrent_q_shapes", {})[f"T{T}_M{M}_H{H}"] = entry
+        add_shape_rows(results, "recurrent_q_shapes", T, M, H,
+                       time_gru(T, M, H, ins, hs, rec))
         routes[T] = time_rq_routes(T)
+    keep_max_err(results, e)
+    return routes
+
+
+def add_shape_rows(results, group, T, M, H, t):
+    """Add the times ``t`` of K2, K3 and dw at one shape, with their
+    bounds, µs a step and yardsticks, to ``results[name][group]``."""
+    rows = {"gru_seq_fwd": ("fwd", "fwd_library_ms"), "gru_seq_bwd": ("bwd", None),
+            "gru_seq_dw": ("dw", "dw_library_ms")}
+    bounds = gru_bounds(T, M, H)
+    for name, (k, lib) in rows.items():
+        b = bounds[k]["tc"]
+        entry = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[0],
+                     bound_by=b[1], bound_f32_ms=bounds[k]["f32"][0],
+                     library_ms=t[lib] if lib else None, us_per_step=t[f"{k}_ms"] * 1e3 / T)
+        if k == "bwd":
+            entry.update(whole_bwd_library_ms=t["bwd_library_ms"],
+                         whole_bwd_ms=t["bwd_ms"] + t["dw_ms"])
+        results[name].setdefault(group, {})[f"T{T}_M{M}_H{H}"] = entry
+
+
+def keep_max_err(results, e):
+    """Raise each tensor-core GRU row's max_abs_err to the errors ``e`` of
+    ``check_gru_shape`` where they are larger."""
     for name, key in (("gru_seq_fwd", "fwd"), ("gru_seq_bwd", "bwd"), ("gru_seq_dw", "dw")):
         worst = max(e[key], e["grads"]) if key == "bwd" else e[key]
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
-    return routes
 
 
 def mma_ceiling():
@@ -1357,6 +1383,329 @@ def drive_recq(name, counters):
                 step=step, clock=want, metrics=seen[-1], eval=evals, block_profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: MADDPG, FACMAC and COMA (K1 at COMA's shapes, K2, K3 and dw on
+# the recurrent actors)
+# ---------------------------------------------------------------------------
+
+# the JAX package's validated recipes (scripts/validate_baselines.py:72-96
+# maddpg_sl and facmac_sl, :209-220 maddpg_rnn_sl, :272-285 coma_3m),
+# copied, not imported; random weights, seed 0. coma_rnn_3m is coma_3m with
+# the GRU actor (actor_hidden_dim 64)
+_SL = dict(env_type="mpe", env_name="simple_speaker_listener_v4", num_envs=32,
+           total_timesteps=2_000_000, buffer_size=5_000, batch_size=32, actor_hidden_dim=64,
+           critic_hidden_dim=128, log_interval=40, seed=0, verbose=False)
+_COMA = dict(env_type="smaclite", env_name="3m", num_envs=64, total_timesteps=2_000_000,
+             actor_hidden_dim=64, critic_hidden_dim=128, learning_rate_actor=5e-4,
+             learning_rate_critic=5e-4, td_lambda=0.8, normalize_advantage=True,
+             entropy_coef=0.001, start_e=0.5, end_e=0.002, exploration_fraction=100.0,
+             log_interval=8, seed=0, verbose=False)
+PATHS7 = {"maddpg_sl": ("maddpg", _SL), "maddpg_rnn_sl": ("maddpg", dict(_SL, recurrent=True)),
+          "facmac_sl": ("facmac", _SL), "coma_3m": ("coma", _COMA),
+          "coma_rnn_3m": ("coma", dict(_COMA, recurrent=True))}
+# run length only: a driven COMA block is 2 rollouts (the recipe logs every
+# 8), and COMA times 2 blocks, MADDPG and FACMAC 3
+COMA_LOG_INTERVAL = 2
+# kernel launches per update: K1, K2, K3, dw (the L2 routes never launch)
+KERNEL_KEYS = ("lambda_returns", "gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw")
+PATHS7_LAUNCHES = {"maddpg_sl": (0, 0, 0, 0), "maddpg_rnn_sl": (0, 2, 1, 1),
+                   "facmac_sl": (0, 0, 0, 0), "coma_3m": (1, 0, 0, 0),
+                   "coma_rnn_3m": (1, 1, 1, 1)}
+MADDPG_RNN_SHAPE = (25, 64, 64)    # 32 speaker-listener episodes x 2 agents at H=64
+COMA_RNN_SHAPE = (150, 192, 64)    # a 3m rollout of 64 envs x 3 agents at H=64
+MADDPG_RNN_CLI = ["--env_type", "mpe", "--env_name", "simple_speaker_listener_v4",
+                  "--device", "cuda", "--num_envs", "32", "--recurrent", "true",
+                  "--actor_hidden_dim", "64", "--log_interval", "40",
+                  "--total_timesteps", "1280", "--eval_steps", "1280", "--seed", "0"]
+COMA_RNN_CLI = ["--env_type", "smaclite", "--env_name", "3m", "--device", "cuda",
+                "--num_envs", "64", "--recurrent", "true", "--log_interval", "1",
+                "--total_timesteps", "9600", "--eval_steps", "9600", "--seed", "0"]
+
+
+def _path7(name, device, log_interval=None):
+    """(module, config) of a phase-7 path on ``device``."""
+    from cleanmarl_tpu_torch.algos import coma, facmac, maddpg
+
+    algo, kw = PATHS7[name]
+    mod, cls = {"maddpg": (maddpg, maddpg.MADDPGConfig), "facmac": (facmac, facmac.FACMACConfig),
+                "coma": (coma, coma.COMAConfig)}[algo]
+    return mod, cls(**dict(kw, log_interval=log_interval or kw["log_interval"]), device=device)
+
+
+def coma_rollout_flags():
+    """The team reward and end flags (T=150, 64 envs) of one ``coma_3m``
+    rollout on the card at random weights: the shapes and episode ends of
+    COMA's λ-returns and of its GRU actor's resets."""
+    import torch
+
+    mod, cfg = _path7("coma_3m", "cuda")
+    init, _, _, meta = mod.make_train(cfg)
+    _, traj, _ = meta["collect_rollout"](init(torch.Generator("cuda").manual_seed(0)),
+                                         cfg.start_e)
+    return traj["reward"], traj["ended"]
+
+
+def check_paths7_shapes(results):
+    """K1 at COMA's update shape (T=150, 64 envs x 3 agents: the rollout's
+    team reward and end flags broadcast over the agents, per-agent values)
+    against its plain version, timed as the main path's row; K2, K3 and dw
+    at the recurrent MADDPG update's shape (no resets) and the recurrent
+    COMA update's (resets at the rollout's episode ends), held and timed.
+    Adds ``coma_3m_shape`` to K1's row and ``maddpg_rnn_sl_shapes`` /
+    ``coma_rnn_3m_shapes`` to each tensor-core GRU row."""
+    import torch
+    from cleanmarl_tpu_torch.ops import returns_kernel as rk
+
+    reward, ended = coma_rollout_flags()
+    T, E, n = reward.shape[0], reward.shape[1], 3
+    g = torch.Generator("cuda").manual_seed(11)
+    r, e = reward[..., None].expand(T, E, n), ended[..., None].expand(T, E, n)
+    v = torch.randn(T, E, n, generator=g, device="cuda")
+    b = torch.randn(E, n, generator=g, device="cuda")
+    (kr, ke, _, _), Rr, Rv = rk.kernel_args(r, e, v, b)
+    if (Rr, Rv) != (n, 1) or kr.data_ptr() != reward.data_ptr() or \
+            ke.data_ptr() != ended.data_ptr():
+        fail(f"lambda_returns at COMA's shape would read R=({Rr}, {Rv}), expected ({n}, 1) "
+             "with the reward and flags uncopied")
+    n0 = rk.LAUNCHES["lambda_returns"]
+    got = rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.8)
+    if rk.LAUNCHES["lambda_returns"] != n0 + 1:
+        fail("lambda_returns_kernel did not count its launch")
+    want = rk.lambda_returns_plain(r, e, v, b, 0.99, 0.8)
+    err = max_err(got, want)
+    if not close(got, want, RET_TOL):
+        fail("lambda_returns disagrees with its plain version at COMA's shape")
+    n_bytes = returns_bytes(T, E * n, n, 1)
+    bnd, by = bound_ms(n_bytes, 8 * T * E * n)
+    ms, warm = device_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.8))
+    host = host_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.8))
+    plain = time_ms(lambda: rk.lambda_returns_plain(r, e, v, b, 0.99, 0.8), 10)
+    src = torch.empty(n_bytes // 8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms, copy_warm = device_ms(lambda: dst.copy_(src))
+    log(f"[kernels] lambda_returns at COMA's shape (T={T}, {E} envs x {n} agents, reward and "
+        f"flag per env, R=({Rr}, {Rv}), {int(ended.sum())} episode ends): max_abs_err={err:.3e}; "
+        f"{n_bytes} B, bound {bnd:.6f} ms ({by}); device ms cold/warm: kernel {ms:.5f}/"
+        f"{warm:.5f} ({ms * 1e3 / T:.3f} µs a step cold), one copy of {n_bytes} B "
+        f"{copy_ms:.5f}/{copy_warm:.5f}; wrapper host {host:.5f} ms per call; plain "
+        f"{plain:.4f} ms")
+    row = results["lambda_returns"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["coma_3m_shape"] = dict(T=T, columns=E * n, ms=ms, warm_ms=warm, bound_ms=bnd,
+                                bound_by=by, plain_ms=plain, library_ms=None, copy_ms=copy_ms,
+                                copy_warm_ms=copy_warm, host_ms=host, max_abs_err=err,
+                                us_per_step=ms * 1e3 / T, bytes=n_bytes)
+
+    keep_coma = (1.0 - ended.float())[..., None].expand(T, E, n).reshape(T, E * n).contiguous()
+    for group, (T_, M, H), keep in (
+            ("maddpg_rnn_sl_shapes", MADDPG_RNN_SHAPE,
+             torch.ones(MADDPG_RNN_SHAPE[:2], device="cuda")),
+            ("coma_rnn_3m_shapes", COMA_RNN_SHAPE, keep_coma)):
+        errs, ins, hs, rec = check_gru_shape(T_, M, H, seed=M, keep=keep)
+        add_shape_rows(results, group, T_, M, H, time_gru(T_, M, H, ins, hs, rec))
+        keep_max_err(results, errs)
+
+
+def _sl_batch(env, cfg, seed):
+    """Random episodes of a speaker-listener recipe's widths on the CPU:
+    (B, 25) records with one-hot actions and their step mask."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    B, T, n, A = cfg.batch_size, env.episode_limit, env.n_agents, env.n_actions
+    av = rng.rand(B, T, n, A) < 0.7
+    av[..., 0] = True
+    batch = {"obs": rng.randn(B, T, n, env.obs_dim), "state": rng.randn(B, T, env.state_dim),
+             "reward": rng.randn(B, T), "next_obs": rng.randn(B, T, n, env.obs_dim),
+             "next_state": rng.randn(B, T, env.state_dim),
+             "action": np.eye(A)[np.argmax(rng.rand(B, T, n, A) * av, -1)]}
+    batch = {k: torch.as_tensor(x, dtype=torch.float32) for k, x in batch.items()}
+    batch.update(avail=torch.as_tensor(av), next_avail=torch.ones(B, T, n, A, dtype=torch.bool),
+                 ended=torch.as_tensor(rng.rand(B, T) < 0.05))
+    mask = np.arange(T)[None] < rng.randint(10, T + 1, (B, 1))
+    return batch, torch.as_tensor(mask.astype(np.float32))
+
+
+def check_paths7_updates_against_cpu():
+    """One update of each phase-7 path on the card (kernels, TF32 off)
+    equals the same update on the CPU (plain versions, scan), from the same
+    params and Adam states (after one update on the CPU), on the same
+    batch and Gumbel noise (MADDPG, FACMAC: random episodes of the
+    recipe's widths) or the same rollout (COMA: the recipe's second
+    rollout on the CPU, whose GRU carry at the start is not zero)."""
+    import dataclasses
+    import torch
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+    from cleanmarl_tpu_torch.envs import registry
+
+    def to_cuda(x):
+        return x.cuda() if isinstance(x, torch.Tensor) else x
+
+    def move(runner):
+        keep = ("actor_params", "critic_params", "target_actor", "target_critic", "actor_opt",
+                "critic_opt", "obs", "state", "avail", "actor_h")
+        return runner.replace(**{f.name: tree_map(to_cuda, getattr(runner, f.name))
+                                 for f in dataclasses.fields(runner) if f.name in keep})
+    env = registry.make(_SL["env_type"], _SL["env_name"], agent_ids=True)
+    for name, (algo, kw) in PATHS7.items():
+        mod, cfg_c = _path7(name, "cpu")
+        init_c, _, _, meta_c = mod.make_train(cfg_c)
+        _, _, _, meta_g = mod.make_train(_path7(name, "cuda")[1])
+        if kw.get("recurrent") and (meta_c["gru_impl"], meta_g["gru_impl"]) != ("scan", "kernel"):
+            fail(f"{name}: GRU routes {meta_c['gru_impl']} (CPU) / {meta_g['gru_impl']} (card)")
+        runner = init_c(torch.Generator().manual_seed(0))
+        if algo == "coma":
+            eps = cfg_c.start_e
+            runner, traj, h0 = meta_c["collect_rollout"](runner, eps)
+            runner, _ = meta_c["update"](runner, traj, h0, eps)
+            runner, traj, h0 = meta_c["collect_rollout"](runner, eps)
+            if kw.get("recurrent") and not float(h0.abs().sum()) > 0:
+                fail(f"{name}: the second rollout starts from a zero GRU carry")
+            out_c, m_c = meta_c["update"](runner, traj, h0, eps)
+            out_g, m_g = meta_g["update"](move(runner), tree_map(to_cuda, traj), h0.cuda(), eps)
+            pairs = [(m_g[k], m_c[k]) for k in sorted(m_c)]
+            params = ("actor_params", "critic_params", "target_critic")
+            pairs += [(a, b) for p in params for a, b in zip(
+                tree_leaves(getattr(out_g, p)), tree_leaves(getattr(out_c, p)))]
+            loss = (float(m_g["train/critic_loss"]), float(m_c["train/critic_loss"]))
+        else:
+            gen = torch.Generator().manual_seed(1)
+            batch, mask = _sl_batch(env, cfg_c, 0)
+            a_p, c_p, a_o, c_o, *_ = meta_c["update"](runner, batch, mask,
+                                                      meta_c["draw_noise"](gen, batch))
+            runner = runner.replace(actor_params=a_p, critic_params=c_p, actor_opt=a_o,
+                                    critic_opt=c_o)
+            batch, mask = _sl_batch(env, cfg_c, 1)
+            noise = meta_c["draw_noise"](gen, batch)
+            out_c = meta_c["update"](runner, batch, mask, noise)
+            out_g = meta_g["update"](move(runner), tree_map(to_cuda, batch), mask.cuda(),
+                                     tree_map(to_cuda, noise))
+            pairs = list(zip(out_g[4:], out_c[4:])) + list(zip(
+                tree_leaves(out_g[:2]), tree_leaves(out_c[:2])))
+            loss = (float(out_g[5]), float(out_c[5]))
+        worst = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        if not all(torch.allclose(a.cpu(), b, **PPO_TOL) for a, b in pairs):
+            fail(f"{name} update on the card disagrees with the CPU (max |diff| {worst})")
+        log(f"[paths7] one {name} update, card vs CPU: critic loss {loss[0]:.6f} vs "
+            f"{loss[1]:.6f}; max |diff| over losses, norms and params {worst:.3e}")
+
+
+def drive_path7(name, counters):
+    """One phase-7 path at its recipe's widths on the card: warm-up blocks
+    (incl. init) until updates run, timed blocks, one eval; the update
+    clock (MADDPG, FACMAC: updates + debt = one per completed episode from
+    the first commit, which fills the batch; COMA: one per rollout); every
+    kernel's launches, counted from 0 before init to after eval, equal to
+    its launches per update times the updates; the path's own peak memory;
+    one update's wall time alone; the busy share of one block."""
+    import torch
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    algo = PATHS7[name][0]
+    mod, cfg = _path7(name, "cuda", COMA_LOG_INTERVAL if algo == "coma" else None)
+    init, train_block, eval_fn, meta = mod.make_train(cfg)
+    n_timed = 2 if algo == "coma" else 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    t0 = time.perf_counter()
+    runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
+    seen, n_warm = [], 0
+    while runner.num_updates == 0:
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+        n_warm += 1
+        if n_warm > 3:
+            fail(f"{name}: no update after {n_warm} warm-up blocks")
+    t1 = time.perf_counter()
+    walls, updates = [], []
+    for _ in range(n_timed):
+        n0, s = runner.num_updates, time.perf_counter()
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+        walls.append(time.perf_counter() - s)
+        updates.append(runner.num_updates - n0)
+    evals = to_host(eval_fn(runner.actor_params, torch.Generator("cuda").manual_seed(1)))
+    torch.cuda.synchronize()
+    launches = {k: v for table in counters for k, v in table.items()}
+    peak = torch.cuda.max_memory_allocated()
+    sps = meta["steps_per_block"] * n_timed / sum(walls)
+    for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
+        if not math.isfinite(v):
+            fail(f"{name}: non-finite metric {k}={v}")
+    per_update = dict(zip(KERNEL_KEYS, PATHS7_LAUNCHES[name]))
+    for k, v in launches.items():
+        if v != per_update.get(k, 0) * runner.num_updates:
+            fail(f"{name}: {k} launched {v} times in {runner.num_updates} updates, expected "
+                 f"{per_update.get(k, 0)} per update")
+    if algo == "coma":
+        clock = (n_warm + n_timed) * cfg.log_interval
+        iters = cfg.log_interval * meta["rollout_len"]
+        ok = (runner.num_updates == clock
+              and runner.step == clock * meta["rollout_len"] * cfg.num_envs)
+    else:
+        clock = offpolicy_clock("qmix", cfg, runner.step)
+        iters = cfg.log_interval
+        ok = (runner.num_updates + runner.update_debt == clock
+              and seen[-1]["train/update_debt"] == runner.update_debt)
+    if not ok or seen[-1]["train/num_updates"] != runner.num_updates:
+        fail(f"{name}: {runner.num_updates} updates after {runner.step} "
+             f"{'env steps' if algo == 'coma' else 'iterations'}, the clock says {clock}")
+    step, num_updates = runner.step, runner.num_updates
+
+    if algo == "coma":
+        r2, traj, h0 = meta["collect_rollout"](runner, cfg.end_e)
+
+        def one_update():
+            meta["update"](r2, traj, h0, cfg.end_e)
+    else:
+        g = torch.Generator("cuda").manual_seed(2)
+        batch, mask = runner.ring.sample(g, cfg.batch_size)
+        noise = meta["draw_noise"](g, batch)
+
+        def one_update():
+            meta["update"](runner, batch, mask, noise)
+    one_update()
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for _ in range(10):
+        one_update()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - s) / 10 * 1e3
+    rest_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (n_timed * iters) * 1e3
+    runner, prof = profile_block(train_block, runner, update_ms=update_ms)
+
+    log(f"[{name}] {cfg.env_type} {cfg.env_name}, {cfg.num_envs} envs, "
+        f"{meta['steps_per_block']} env steps per train_block, GRU route "
+        f"{meta.get('gru_impl')!r}; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
+        f"timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with {updates} updates; "
+        f"env-steps/s {sps:.1f}")
+    log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an env step (act, env "
+        f"step, replay or rollout write) {rest_ms:.3f} ms; peak device memory "
+        f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before init")
+    log(f"[{name}] kernel launches {launches} = {per_update} per update x {num_updates} updates")
+    log(f"[{name}] {num_updates} updates (+ {getattr(runner, 'update_debt', 0)} debt) after "
+        f"{step} {'env steps' if algo == 'coma' else 'iterations'} = the clock's {clock}; "
+        f"last block {json.dumps(seen[-1], sort_keys=True)}")
+    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    log(f"[{name}] one block ({prof['updates']} updates): device busy "
+        f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
+        f"{prof['wall_s']:.4f} s unprofiled{' (adjusted)' if prof['adjusted'] else ''} "
+        f"({100 * prof['busy_share']:.1f} % busy), {prof['wall_profiled_s']:.4f} s under "
+        f"the profiler ({100 * prof['busy_share_profiled']:.1f} % busy)")
+    for k in prof["top"]:
+        log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
+    return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
+                warmup_blocks=n_warm, update_ms=update_ms, iteration_rest_ms=rest_ms,
+                path_peak_mib=(peak - base) / 2**20, launches=launches,
+                launches_per_update=per_update, num_updates=num_updates, step=step,
+                clock=clock, metrics=seen[-1], eval=evals, block_profile=prof)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write all results to this JSON file")
@@ -1399,6 +1748,7 @@ def main():
     mma_tflops = mma_ceiling()
     check_rnn_seq_apply()
     rq_routes = check_recurrent_q_shapes(results)
+    check_paths7_shapes(results)
 
     # phase 3: the main path
     check_update_against_cpu()
@@ -1409,6 +1759,8 @@ def main():
     run_cli("mappo", MAPPO_CLI)
     run_cli("qmix", QMIX_CLI)
     run_cli("qmix_rnn", QMIX_RNN_CLI)
+    run_cli("maddpg", MADDPG_RNN_CLI)
+    run_cli("coma", COMA_RNN_CLI)
 
     # phase 5: the off-policy slice (no kernel on its path)
     check_offpolicy_updates_against_cpu()
@@ -1420,7 +1772,14 @@ def main():
     recq = {name: drive_recq(name, counters) for name in RECQ_DRIVEN}
     log(f"[recq] phase 6 in {time.perf_counter() - t6:.1f} s")
 
-    by_path = {"mappo": main_path["launches"], **{k: v["launches"] for k, v in recq.items()}}
+    # phase 7: MADDPG, FACMAC and COMA
+    t7 = time.perf_counter()
+    check_paths7_updates_against_cpu()
+    paths7 = {name: drive_path7(name, counters) for name in PATHS7}
+    log(f"[paths7] phase 7 in {time.perf_counter() - t7:.1f} s")
+
+    by_path = {"mappo": main_path["launches"],
+               **{k: v["launches"] for k, v in {**recq, **paths7}.items()}}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
                     launches_by_path={p: c[name] for p, c in by_path.items()}, **r)
                for name, r in results.items()]
@@ -1429,7 +1788,7 @@ def main():
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                            kernels=kernels, gru_times=gru_times, main_path=main_path,
                            mma_tf32_tflops=mma_tflops, offpolicy=offpolicy,
-                           recurrent_q_routes=rq_routes, recurrent_q=recq),
+                           recurrent_q_routes=rq_routes, recurrent_q=recq, paths7=paths7),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -347,10 +347,12 @@ CENTRAL = ("r", "e", "v", "b")
     ((1, 77, 3), 0.2, CENTRAL), ((1, 77), 0.2, ()),          # T = 1
     ((21, 50, 3), 0.1, ("r", "e")),          # one step over a 20-step chunk
     ((257, 1000, 3), 0.02, CENTRAL),         # T over three chunks in flight
-    ((257, 130), 0.05, ()), ((60, 1000, 3), 0.05, ("r", "e"))])
+    ((257, 130), 0.05, ()), ((60, 1000, 3), 0.05, ("r", "e")),
+    ((150, 64, 3), 0.03, ("r", "e"))])       # COMA on 3m: team reward and flag, R = (3, 1)
 def test_returns_kernel_matches_plain_on_card(shape, p_end, per_env):
     """The kernel against the plain loop at R = 1 and 3, a ragged B, T = 1,
-    T = 60 and T over several chunks; each call counts one launch."""
+    T = 60, T over several chunks and COMA's update (T=150, 64 envs x 3
+    agents); each call counts one launch."""
     _card()
     r, e, v, b = _returns_inputs(shape, p_end, seed=1, device="cuda", per_env=per_env)
     n0 = returns_kernel.LAUNCHES["lambda_returns"]
@@ -377,14 +379,17 @@ def test_returns_kernel_is_bitwise_deterministic_on_card(shape, per_env):
                                    (60, 3072, 128), (8, 100, 256),
                                    (4, 40, 512), (60, 3077, 128),
                                    (7, 33, 32), (6, 50, 64), (5, 45, 96),
-                                   (5, 20, 100), (150, 96, 64), (2, 96, 64)])
+                                   (5, 20, 100), (150, 96, 64), (2, 96, 64),
+                                   (25, 64, 64), (150, 192, 64)])
 def test_gru_kernels_match_plain_on_card(T, M, H):
     """Each kernel against its plain version, at the test shapes, the main
     path's (T=60, M=3072, H=128), a ragged one that cuts the row tiles and
     the dw slabs (M=3077, R=184,620), every tensor-core width, widths of
-    the L2 routes (8, 16, 100, 256, 512), and the recurrent-Q update's
-    (32 episodes x 3 agents at H=64: whole episodes of T=150, chunks after
-    burn-in of T=2); each recurrence goes through the route of its width."""
+    the L2 routes (8, 16, 100, 256, 512), the recurrent-Q update's (32
+    episodes x 3 agents at H=64: whole episodes of T=150, chunks after
+    burn-in of T=2), recurrent MADDPG's (32 speaker-listener episodes x 2
+    agents, T=25) and recurrent COMA's (a 3m rollout of 64 envs x 3
+    agents, T=150); each recurrence goes through the route of its width."""
     _card()
     wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=H, device="cuda")
     fwd = gru_kernel.fwd_route(H)
@@ -455,3 +460,36 @@ def test_rnn_seq_eval_next_kernel_route_matches_scan_on_card(T):
         want = nets.rnn_seq_eval_next(params, h0, obs, next_obs, impl="scan")
     assert gru_kernel.LAUNCHES["gru_seq_fwd"] == n0 + 1
     torch.testing.assert_close(got, want, atol=VAL_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_rnn_seq_apply_with_resets_kernel_route_matches_scan_on_card():
+    """Recurrent COMA's actor recompute at its update's shape (T=150, 64
+    envs x 3 agents, obs 33, H=64, 9 actions) from a non-zero carry with
+    resets at per-env episode ends (reset_seq (T, B)): the kernel route
+    (one K2, then K3 and dw) against the scan, values at 1e-5 and every
+    gradient at 2e-4 of its largest entry."""
+    _card()
+    from cleanmarl_tpu_torch.core import networks as nets
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+
+    g = torch.Generator("cuda").manual_seed(5)
+    params = nets.rnn_init(g, 33, 64, 9, final_gain=0.01, device="cuda")
+    obs = torch.randn(150, 64, 3, 33, generator=g, device="cuda")
+    h0 = 0.5 * torch.randn(64, 3, 64, generator=g, device="cuda")
+    ended = torch.rand(150, 64, generator=g, device="cuda") < 0.03
+
+    def run(impl):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        hx = h0.clone().requires_grad_(True)
+        hf, out = nets.rnn_seq_apply(tree_unflatten(params, leaves), hx, obs,
+                                     reset_seq=ended, impl=impl)
+        return out.detach(), torch.autograd.grad((out * out).sum() + hf.sum(), leaves + [hx])
+    n0 = {k: gru_kernel.LAUNCHES[k] for k in ("gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw")}
+    out_k, grads_k = run("kernel")
+    assert {k: gru_kernel.LAUNCHES[k] - v for k, v in n0.items()} == {
+        "gru_seq_fwd": 1, "gru_seq_bwd": 1, "gru_seq_dw": 1}
+    out_s, grads_s = run("scan")
+    torch.testing.assert_close(out_k, out_s, atol=VAL_TOL, rtol=0)
+    for a, b in zip(grads_k, grads_s):
+        torch.testing.assert_close(a, b, atol=GRAD_TOL * max(1.0, float(b.abs().max())), rtol=0)
