@@ -68,7 +68,23 @@ Phases, each of which must pass:
    recipe's widths (COMA two rollouts a block) with the measures of
    phase 5, the update clock (one update per completed episode, or per
    rollout), and every kernel's launches equal to its launches per update
-   times the updates.
+   times the updates;
+8. IPPO, pursuit and LBF, the host-env route and SMAClite collisions
+   (phase 2 also holds and times K1 at IPPO's update shapes on pursuit,
+   T=100 over 64 envs x 8 pursuers, and LBF, T=150 over 64 x 2, with the
+   team reward and flag broadcast, and at COMA's on LBF with per-agent
+   rewards, and K2/K3/dw at T=150, M=128 with resets and a carried h0;
+   phase 4 also runs the recurrent ``ippo`` CLI on LBF): one pursuit and
+   one LBF ``VecEnv.step`` of 64 envs profiled for their device ops; one
+   update of each of ``ippo_pursuit``, ``ippo_lbf``, ``ippo_rnn_lbf``,
+   ``coma_lbf``, ``coma_rnn_lbf`` and ``vdn_pursuit`` on the card against
+   the CPU; ``ippo_pursuit``, ``ippo_rnn_lbf`` and ``coma_rnn_lbf`` driven
+   as in phase 7 (launches per update call, IPPO's per rollout) and
+   ``vdn_pursuit`` as in phase 5; the host route (a numpy host env written
+   here behind ``HostEnvFamily``: its live and pre-reset views against the
+   host env's own arrays, one IPPO block and one QMIX episode-ring block on
+   it); SMAClite 3m with ``unit_collisions``, one step on the card against
+   the CPU and one MAPPO block at the bench widths.
 
 The line before last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -282,10 +298,12 @@ def _returns_inputs(T, E, n, p_end, shared_r, shared_v, seed):
     return r, e, v, b
 
 
-def returns_bytes(T, B, Rr, Rv) -> int:
+def returns_bytes(T, B, Rr, Rv, Re=None) -> int:
     """Bytes the λ-return function needs: G and A written (T, B), V read
-    at (T, B / Rv), r (4 B) and e (1 B) at (T, B / Rr), the bootstrap (B / Rv)."""
-    return T * B * 8 + T * (B // Rv) * 4 + T * (B // Rr) * 5 + (B // Rv) * 4
+    at (T, B / Rv), r (4 B) at (T, B / Rr), e (1 B) at (T, B / Re) (Re
+    defaults to Rr), the bootstrap (B / Rv)."""
+    Re = Rr if Re is None else Re
+    return T * B * 8 + T * (B // Rv) * 4 + T * (B // Rr) * 4 + T * (B // Re) + (B // Rv) * 4
 
 
 def _column_launch(r, e, v, b):
@@ -978,8 +996,9 @@ OFFPOLICY = {
                 hidden_dim=64, log_interval=200, seed=0, verbose=False),
 }
 # (warm-up blocks, timed blocks): VDN's updates start after 10,000
-# transitions, inside its second block
-OFFPOLICY_BLOCKS = {"qmix": (1, 3), "vdn": (2, 3)}
+# transitions, inside its second block (vdn_pursuit: its fourth of 100
+# iterations, DRIVE_LOG_INTERVAL)
+OFFPOLICY_BLOCKS = {"qmix": (1, 3), "vdn": (2, 3), "vdn_pursuit": (4, 2)}
 MPE_CYCLES = 25     # every simple_spread env truncates at step 25, none terminates
 
 
@@ -987,6 +1006,8 @@ def _offpolicy(name, device):
     """(module, config) of one off-policy recipe on ``device``."""
     from cleanmarl_tpu_torch.algos import qmix, vdn
 
+    if name in PATHS8:
+        return _recipe(name, device, DRIVE_LOG_INTERVAL.get(name))
     mod, cls = {"qmix": (qmix, qmix.QMIXConfig), "vdn": (vdn, vdn.VDNConfig)}[name]
     return mod, cls(**OFFPOLICY[name], device=device)
 
@@ -1116,8 +1137,10 @@ def drive_offpolicy(name, counters):
         seen.append(to_host(metrics))
         walls.append(time.perf_counter() - s)
         updates.append(runner.num_updates - n0)
+    t_eval = time.perf_counter()
     evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t_eval
     launches = {k: v for table in counters for k, v in table.items()}
     peak = torch.cuda.max_memory_allocated()
     sps = meta["steps_per_block"] * n_timed / sum(walls)
@@ -1142,10 +1165,12 @@ def drive_offpolicy(name, counters):
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - s) / 50 * 1e3
     env_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (n_timed * cfg.log_interval) * 1e3
+    t_prof = time.perf_counter()
     runner, prof = profile_block(train_block, runner)
+    t_prof = time.perf_counter() - t_prof
 
-    log(f"[{name}] {cfg.env_name}, {cfg.num_envs} envs, {meta['steps_per_block']} env "
-        f"steps per train_block; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
+    log(f"[{name}] {cfg.env_type} {cfg.env_name}, {cfg.num_envs} envs, "
+        f"{meta['steps_per_block']} env steps per train_block; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
         f"timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with {updates} updates; "
         f"env-steps/s {sps:.1f}")
     log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an iteration "
@@ -1154,19 +1179,21 @@ def drive_offpolicy(name, counters):
         f"init; kernel launches on this path {launches}")
     log(f"[{name}] {num_updates} updates after {step} iterations = the clock's {want}; "
         f"last block {json.dumps(seen[-1], sort_keys=True)}")
-    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    log(f"[{name}] eval in {t_eval:.2f} s: {json.dumps(evals, sort_keys=True)}")
     log(f"[{name}] one block ({prof['updates']} updates): device busy "
         f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
         f"{prof['wall_s']:.4f} s unprofiled ({100 * prof['busy_share']:.1f} % busy), "
         f"{prof['wall_profiled_s']:.4f} s under the profiler "
-        f"({100 * prof['busy_share_profiled']:.1f} % busy)")
+        f"({100 * prof['busy_share_profiled']:.1f} % busy); profiled and matched blocks with "
+        f"the trace read {t_prof:.2f} s")
     for k in prof["top"]:
         log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
     return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
                 update_ms=update_ms, iteration_rest_ms=env_ms, peak_mib=peak / 2**20,
                 path_peak_mib=(peak - base) / 2**20,
                 launches=launches, num_updates=num_updates, step=step,
-                metrics=seen[-1], eval=evals, block_profile=prof)
+                metrics=seen[-1], eval=evals, block_profile=prof, eval_s=t_eval,
+                profile_s=t_prof)
 
 
 # ---------------------------------------------------------------------------
@@ -1403,9 +1430,12 @@ _COMA = dict(env_type="smaclite", env_name="3m", num_envs=64, total_timesteps=2_
 PATHS7 = {"maddpg_sl": ("maddpg", _SL), "maddpg_rnn_sl": ("maddpg", dict(_SL, recurrent=True)),
           "facmac_sl": ("facmac", _SL), "coma_3m": ("coma", _COMA),
           "coma_rnn_3m": ("coma", dict(_COMA, recurrent=True))}
-# run length only: a driven COMA block is 2 rollouts (the recipe logs every
-# 8), and COMA times 2 blocks, MADDPG and FACMAC 3
-COMA_LOG_INTERVAL = 2
+# run length only: a driven COMA or IPPO block is 2 rollouts (the recipes
+# log every 2-8), and they time 2 blocks, MADDPG and FACMAC 3
+ONPOLICY_LOG_INTERVAL = 2
+# pursuit's blocks are cut further (its env step costs 3x LBF's): IPPO
+# one rollout a block, VDN 100 iterations a block (its recipe logs at 200)
+DRIVE_LOG_INTERVAL = {"ippo_pursuit": 1, "vdn_pursuit": 100}
 # kernel launches per update: K1, K2, K3, dw (the L2 routes never launch)
 KERNEL_KEYS = ("lambda_returns", "gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw")
 PATHS7_LAUNCHES = {"maddpg_sl": (0, 0, 0, 0), "maddpg_rnn_sl": (0, 2, 1, 1),
@@ -1422,13 +1452,14 @@ COMA_RNN_CLI = ["--env_type", "smaclite", "--env_name", "3m", "--device", "cuda"
                 "--total_timesteps", "9600", "--eval_steps", "9600", "--seed", "0"]
 
 
-def _path7(name, device, log_interval=None):
-    """(module, config) of a phase-7 path on ``device``."""
-    from cleanmarl_tpu_torch.algos import coma, facmac, maddpg
+def _recipe(name, device, log_interval=None):
+    """(module, config) of a phase-7 or phase-8 recipe on ``device``."""
+    from cleanmarl_tpu_torch.algos import coma, facmac, ippo, maddpg, vdn
 
-    algo, kw = PATHS7[name]
+    algo, kw = {**PATHS7, **PATHS8}[name]
     mod, cls = {"maddpg": (maddpg, maddpg.MADDPGConfig), "facmac": (facmac, facmac.FACMACConfig),
-                "coma": (coma, coma.COMAConfig)}[algo]
+                "coma": (coma, coma.COMAConfig), "ippo": (ippo, ippo.IPPOConfig),
+                "vdn": (vdn, vdn.VDNConfig)}[algo]
     return mod, cls(**dict(kw, log_interval=log_interval or kw["log_interval"]), device=device)
 
 
@@ -1438,11 +1469,60 @@ def coma_rollout_flags():
     COMA's λ-returns and of its GRU actor's resets."""
     import torch
 
-    mod, cfg = _path7("coma_3m", "cuda")
+    mod, cfg = _recipe("coma_3m", "cuda")
     init, _, _, meta = mod.make_train(cfg)
     _, traj, _ = meta["collect_rollout"](init(torch.Generator("cuda").manual_seed(0)),
                                          cfg.start_e)
     return traj["reward"], traj["ended"]
+
+
+def time_k1_at(results, key, r, e, v, b, lam, want_R, label):
+    """K1 at one update's inputs (r, e, v (T, E, n), b (E, n)) against its
+    plain version, with the repeat factors ``want_R`` it must read them at
+    (an input broadcast over the agents uncopied), timed as the main path's
+    row: cold and warm device ms, the wrapper's host ms, the plain version
+    and one copy of as many bytes. Adds ``results["lambda_returns"][key]``."""
+    import torch
+    from cleanmarl_tpu_torch.ops import returns_kernel as rk
+
+    (kr, ke, kv, _), Rr, Rv = rk.kernel_args(r, e, v, b)
+    views = [(k, x) for k, x, R in ((kr, r, Rr), (ke, e, Rr), (kv, v, Rv)) if R > 1]
+    if (Rr, Rv) != want_R or any(k.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+                                 for k, x in views):
+        fail(f"lambda_returns at {label} would read R=({Rr}, {Rv}), expected {want_R} with "
+             "the broadcast inputs uncopied")
+    n0 = rk.LAUNCHES["lambda_returns"]
+    got = rk.lambda_returns_kernel(r, e, v, b, 0.99, lam)
+    if rk.LAUNCHES["lambda_returns"] != n0 + 1:
+        fail("lambda_returns_kernel did not count its launch")
+    want = rk.lambda_returns_plain(r, e, v, b, 0.99, lam)
+    err = max_err(got, want)
+    if not close(got, want, RET_TOL):
+        fail(f"lambda_returns disagrees with its plain version at {label}")
+    T, B = v.shape[0], v[0].numel()
+    # the bound counts each input once at its own base, whatever the
+    # kernel reads (r and e share one repeat factor there)
+    base_R = [(rk.repeat_base(x) or (None, 1))[1] for x in (r, e, v)]
+    n_bytes = returns_bytes(T, B, base_R[0], base_R[2], base_R[1])
+    bnd, by = bound_ms(n_bytes, 8 * T * B)
+    ms, warm = device_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, lam))
+    host = host_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, lam))
+    plain = time_ms(lambda: rk.lambda_returns_plain(r, e, v, b, 0.99, lam), 10)
+    src = torch.empty(n_bytes // 8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms, copy_warm = device_ms(lambda: dst.copy_(src))
+    log(f"[kernels] lambda_returns at {label} (T={T}, {B} columns, R=({Rr}, {Rv}) read, "
+        f"inputs' own R (r, e, v)={tuple(base_R)}, "
+        f"{int(e[..., 0].sum())} episode ends): max_abs_err={err:.3e}; {n_bytes} B, bound "
+        f"{bnd:.6f} ms ({by}); device ms cold/warm: kernel {ms:.5f}/{warm:.5f} "
+        f"({ms * 1e3 / T:.3f} µs a step cold), one copy of {n_bytes} B {copy_ms:.5f}/"
+        f"{copy_warm:.5f}; wrapper host {host:.5f} ms per call; plain {plain:.4f} ms")
+    row = results["lambda_returns"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row[key] = dict(T=T, columns=B, R=[Rr, Rv], input_R=base_R, ms=ms, warm_ms=warm,
+                    bound_ms=bnd, bound_by=by,
+                    plain_ms=plain, library_ms=None, copy_ms=copy_ms, copy_warm_ms=copy_warm,
+                    host_ms=host, max_abs_err=err, us_per_step=ms * 1e3 / T, bytes=n_bytes)
 
 
 def check_paths7_shapes(results):
@@ -1454,7 +1534,6 @@ def check_paths7_shapes(results):
     Adds ``coma_3m_shape`` to K1's row and ``maddpg_rnn_sl_shapes`` /
     ``coma_rnn_3m_shapes`` to each tensor-core GRU row."""
     import torch
-    from cleanmarl_tpu_torch.ops import returns_kernel as rk
 
     reward, ended = coma_rollout_flags()
     T, E, n = reward.shape[0], reward.shape[1], 3
@@ -1462,39 +1541,7 @@ def check_paths7_shapes(results):
     r, e = reward[..., None].expand(T, E, n), ended[..., None].expand(T, E, n)
     v = torch.randn(T, E, n, generator=g, device="cuda")
     b = torch.randn(E, n, generator=g, device="cuda")
-    (kr, ke, _, _), Rr, Rv = rk.kernel_args(r, e, v, b)
-    if (Rr, Rv) != (n, 1) or kr.data_ptr() != reward.data_ptr() or \
-            ke.data_ptr() != ended.data_ptr():
-        fail(f"lambda_returns at COMA's shape would read R=({Rr}, {Rv}), expected ({n}, 1) "
-             "with the reward and flags uncopied")
-    n0 = rk.LAUNCHES["lambda_returns"]
-    got = rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.8)
-    if rk.LAUNCHES["lambda_returns"] != n0 + 1:
-        fail("lambda_returns_kernel did not count its launch")
-    want = rk.lambda_returns_plain(r, e, v, b, 0.99, 0.8)
-    err = max_err(got, want)
-    if not close(got, want, RET_TOL):
-        fail("lambda_returns disagrees with its plain version at COMA's shape")
-    n_bytes = returns_bytes(T, E * n, n, 1)
-    bnd, by = bound_ms(n_bytes, 8 * T * E * n)
-    ms, warm = device_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.8))
-    host = host_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.8))
-    plain = time_ms(lambda: rk.lambda_returns_plain(r, e, v, b, 0.99, 0.8), 10)
-    src = torch.empty(n_bytes // 8, device="cuda")
-    dst = torch.empty_like(src)
-    copy_ms, copy_warm = device_ms(lambda: dst.copy_(src))
-    log(f"[kernels] lambda_returns at COMA's shape (T={T}, {E} envs x {n} agents, reward and "
-        f"flag per env, R=({Rr}, {Rv}), {int(ended.sum())} episode ends): max_abs_err={err:.3e}; "
-        f"{n_bytes} B, bound {bnd:.6f} ms ({by}); device ms cold/warm: kernel {ms:.5f}/"
-        f"{warm:.5f} ({ms * 1e3 / T:.3f} µs a step cold), one copy of {n_bytes} B "
-        f"{copy_ms:.5f}/{copy_warm:.5f}; wrapper host {host:.5f} ms per call; plain "
-        f"{plain:.4f} ms")
-    row = results["lambda_returns"]
-    row["max_abs_err"] = max(row["max_abs_err"], err)
-    row["coma_3m_shape"] = dict(T=T, columns=E * n, ms=ms, warm_ms=warm, bound_ms=bnd,
-                                bound_by=by, plain_ms=plain, library_ms=None, copy_ms=copy_ms,
-                                copy_warm_ms=copy_warm, host_ms=host, max_abs_err=err,
-                                us_per_step=ms * 1e3 / T, bytes=n_bytes)
+    time_k1_at(results, "coma_3m_shape", r, e, v, b, 0.8, (n, 1), "COMA's shape on 3m")
 
     keep_coma = (1.0 - ended.float())[..., None].expand(T, E, n).reshape(T, E * n).contiguous()
     for group, (T_, M, H), keep in (
@@ -1527,50 +1574,75 @@ def _sl_batch(env, cfg, seed):
     return batch, torch.as_tensor(mask.astype(np.float32))
 
 
-def check_paths7_updates_against_cpu():
-    """One update of each phase-7 path on the card (kernels, TF32 off)
-    equals the same update on the CPU (plain versions, scan), from the same
-    params and Adam states (after one update on the CPU), on the same
-    batch and Gumbel noise (MADDPG, FACMAC: random episodes of the
-    recipe's widths) or the same rollout (COMA: the recipe's second
-    rollout on the CPU, whose GRU carry at the start is not zero)."""
+def check_updates_against_cpu(names, tag):
+    """One update of each recipe in ``names`` on the card (kernels, TF32
+    off) equals the same update on the CPU (plain versions, scan), from the
+    same params and Adam states (after one update on the CPU), on the same
+    batch and Gumbel noise (MADDPG, FACMAC: random episodes of the recipe's
+    widths; VDN: its transition ring after 25 CPU iterations) or the same
+    rollout (COMA, IPPO: the recipe's second rollout on the CPU, whose GRU
+    carry at the start is not zero; COMA's truncation bootstrap takes a
+    uniform sample of the terminal observations' actions)."""
     import dataclasses
     import torch
     from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
     from cleanmarl_tpu_torch.envs import registry
+    from cleanmarl_tpu_torch.envs.base import categorical
 
     def to_cuda(x):
         return x.cuda() if isinstance(x, torch.Tensor) else x
 
     def move(runner):
-        keep = ("actor_params", "critic_params", "target_actor", "target_critic", "actor_opt",
-                "critic_opt", "obs", "state", "avail", "actor_h")
+        skip = ("env_state", "stats", "generator", "ring", "buffer")
         return runner.replace(**{f.name: tree_map(to_cuda, getattr(runner, f.name))
-                                 for f in dataclasses.fields(runner) if f.name in keep})
+                                 for f in dataclasses.fields(runner) if f.name not in skip})
     env = registry.make(_SL["env_type"], _SL["env_name"], agent_ids=True)
-    for name, (algo, kw) in PATHS7.items():
-        mod, cfg_c = _path7(name, "cpu")
+    for name in names:
+        algo, kw = {**PATHS7, **PATHS8}[name]
+        mod, cfg_c = _recipe(name, "cpu")
         init_c, _, _, meta_c = mod.make_train(cfg_c)
-        _, _, _, meta_g = mod.make_train(_path7(name, "cuda")[1])
+        _, _, _, meta_g = mod.make_train(_recipe(name, "cuda")[1])
         if kw.get("recurrent") and (meta_c["gru_impl"], meta_g["gru_impl"]) != ("scan", "kernel"):
             fail(f"{name}: GRU routes {meta_c['gru_impl']} (CPU) / {meta_g['gru_impl']} (card)")
         runner = init_c(torch.Generator().manual_seed(0))
-        if algo == "coma":
-            eps = cfg_c.start_e
-            runner, traj, h0 = meta_c["collect_rollout"](runner, eps)
-            runner, _ = meta_c["update"](runner, traj, h0, eps)
-            runner, traj, h0 = meta_c["collect_rollout"](runner, eps)
+        gen = torch.Generator().manual_seed(1)
+        if algo in ("coma", "ippo"):
+            eps = (cfg_c.start_e,) if algo == "coma" else ()
+            upd = meta_c["update"] if algo == "coma" else meta_c["ppo_update"]
+            upd_g = meta_g["update"] if algo == "coma" else meta_g["ppo_update"]
+
+            def a_last(traj):
+                if algo == "coma" and cfg_c.bootstrap_truncation:
+                    avail = traj["final_avail"]
+                    return (categorical(torch.where(avail, 0.0, float("-inf")), gen),)
+                return ()
+            runner, traj, h0 = meta_c["collect_rollout"](runner, *eps)
+            runner, _ = upd(runner, traj, h0, *eps, *a_last(traj))
+            runner, traj, h0 = meta_c["collect_rollout"](runner, *eps)
             if kw.get("recurrent") and not float(h0.abs().sum()) > 0:
                 fail(f"{name}: the second rollout starts from a zero GRU carry")
-            out_c, m_c = meta_c["update"](runner, traj, h0, eps)
-            out_g, m_g = meta_g["update"](move(runner), tree_map(to_cuda, traj), h0.cuda(), eps)
+            last = a_last(traj)
+            out_c, m_c = upd(runner, traj, h0, *eps, *last)
+            out_g, m_g = upd_g(move(runner), tree_map(to_cuda, traj), h0.cuda(), *eps,
+                               *tree_map(to_cuda, last))
             pairs = [(m_g[k], m_c[k]) for k in sorted(m_c)]
-            params = ("actor_params", "critic_params", "target_critic")
+            params = ("actor_params", "critic_params") + (
+                ("target_critic",) if algo == "coma" else ())
             pairs += [(a, b) for p in params for a, b in zip(
                 tree_leaves(getattr(out_g, p)), tree_leaves(getattr(out_c, p)))]
             loss = (float(m_g["train/critic_loss"]), float(m_c["train/critic_loss"]))
+        elif algo == "vdn":
+            for _ in range(25):
+                runner, _ = meta_c["train_iter"](runner)
+            args = (runner.buffer.sample(gen, cfg_c.batch_size * cfg_c.num_envs),)
+            state = (runner.params, runner.target_params, runner.opt_state)
+            p_c, _, loss_c, gn_c = meta_c["update"](*state, *args)
+            p_g, _, loss_g, gn_g = meta_g["update"](*tree_map(to_cuda, state),
+                                                    *tree_map(to_cuda, args))
+            pairs = [(loss_g, loss_c), (gn_g, gn_c)] + list(zip(tree_leaves(p_g),
+                                                                tree_leaves(p_c)))
+            loss = (float(loss_g), float(loss_c))
         else:
-            gen = torch.Generator().manual_seed(1)
             batch, mask = _sl_batch(env, cfg_c, 0)
             a_p, c_p, a_o, c_o, *_ = meta_c["update"](runner, batch, mask,
                                                       meta_c["draw_noise"](gen, batch))
@@ -1587,25 +1659,31 @@ def check_paths7_updates_against_cpu():
         worst = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
         if not all(torch.allclose(a.cpu(), b, **PPO_TOL) for a, b in pairs):
             fail(f"{name} update on the card disagrees with the CPU (max |diff| {worst})")
-        log(f"[paths7] one {name} update, card vs CPU: critic loss {loss[0]:.6f} vs "
-            f"{loss[1]:.6f}; max |diff| over losses, norms and params {worst:.3e}")
+        log(f"[{tag}] one {name} update, card vs CPU: {'critic ' * (algo != 'vdn')}loss "
+            f"{loss[0]:.6f} vs {loss[1]:.6f}; max |diff| over losses, norms and params "
+            f"{worst:.3e}")
 
 
-def drive_path7(name, counters):
-    """One phase-7 path at its recipe's widths on the card: warm-up blocks
-    (incl. init) until updates run, timed blocks, one eval; the update
-    clock (MADDPG, FACMAC: updates + debt = one per completed episode from
-    the first commit, which fills the batch; COMA: one per rollout); every
-    kernel's launches, counted from 0 before init to after eval, equal to
-    its launches per update times the updates; the path's own peak memory;
-    one update's wall time alone; the busy share of one block."""
+def drive_recipe(name, counters):
+    """One phase-7 or phase-8 recipe at its widths on the card: warm-up
+    blocks (incl. init) until updates run, timed blocks, one eval; the
+    update clock (MADDPG, FACMAC: updates + debt = one per completed episode
+    from the first commit, which fills the batch; COMA: one per rollout;
+    IPPO: epochs x minibatches per rollout); every kernel's launches,
+    counted from 0 before init to after eval, equal to its launches per
+    update call (IPPO: per rollout) times the calls; the path's own peak
+    memory; one update call's wall time alone; the busy share of one
+    block."""
     import torch
     from cleanmarl_tpu_torch.core.driver import to_host
 
-    algo = PATHS7[name][0]
-    mod, cfg = _path7(name, "cuda", COMA_LOG_INTERVAL if algo == "coma" else None)
+    algo = {**PATHS7, **PATHS8}[name][0]
+    onpolicy = algo in ("coma", "ippo")
+    mod, cfg = _recipe(name, "cuda", DRIVE_LOG_INTERVAL.get(name, ONPOLICY_LOG_INTERVAL)
+                       if onpolicy else None)
     init, train_block, eval_fn, meta = mod.make_train(cfg)
-    n_timed = 2 if algo == "coma" else 3
+    n_timed = 2 if onpolicy else 3
+    per_call = cfg.epochs * max(1, cfg.num_minibatches) if algo == "ippo" else 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1629,24 +1707,28 @@ def drive_path7(name, counters):
         seen.append(to_host(metrics))
         walls.append(time.perf_counter() - s)
         updates.append(runner.num_updates - n0)
+    t_eval = time.perf_counter()
     evals = to_host(eval_fn(runner.actor_params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t_eval
     launches = {k: v for table in counters for k, v in table.items()}
     peak = torch.cuda.max_memory_allocated()
     sps = meta["steps_per_block"] * n_timed / sum(walls)
     for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
         if not math.isfinite(v):
             fail(f"{name}: non-finite metric {k}={v}")
-    per_update = dict(zip(KERNEL_KEYS, PATHS7_LAUNCHES[name]))
+    calls = runner.num_updates // per_call
+    per_update = dict(zip(KERNEL_KEYS, {**PATHS7_LAUNCHES, **PATHS8_LAUNCHES}[name]))
     for k, v in launches.items():
-        if v != per_update.get(k, 0) * runner.num_updates:
-            fail(f"{name}: {k} launched {v} times in {runner.num_updates} updates, expected "
-                 f"{per_update.get(k, 0)} per update")
-    if algo == "coma":
-        clock = (n_warm + n_timed) * cfg.log_interval
+        if v != per_update.get(k, 0) * calls:
+            fail(f"{name}: {k} launched {v} times in {calls} update calls, expected "
+                 f"{per_update.get(k, 0)} per call")
+    if onpolicy:
+        rollouts = (n_warm + n_timed) * cfg.log_interval
+        clock = rollouts * per_call
         iters = cfg.log_interval * meta["rollout_len"]
         ok = (runner.num_updates == clock
-              and runner.step == clock * meta["rollout_len"] * cfg.num_envs)
+              and runner.step == rollouts * meta["rollout_len"] * cfg.num_envs)
     else:
         clock = offpolicy_clock("qmix", cfg, runner.step)
         iters = cfg.log_interval
@@ -1654,14 +1736,16 @@ def drive_path7(name, counters):
               and seen[-1]["train/update_debt"] == runner.update_debt)
     if not ok or seen[-1]["train/num_updates"] != runner.num_updates:
         fail(f"{name}: {runner.num_updates} updates after {runner.step} "
-             f"{'env steps' if algo == 'coma' else 'iterations'}, the clock says {clock}")
+             f"{'env steps' if onpolicy else 'iterations'}, the clock says {clock}")
     step, num_updates = runner.step, runner.num_updates
 
-    if algo == "coma":
-        r2, traj, h0 = meta["collect_rollout"](runner, cfg.end_e)
+    if onpolicy:
+        eps = (cfg.end_e,) if algo == "coma" else ()
+        r2, traj, h0 = meta["collect_rollout"](runner, *eps)
+        upd = meta["update"] if algo == "coma" else meta["ppo_update"]
 
         def one_update():
-            meta["update"](r2, traj, h0, cfg.end_e)
+            upd(r2, traj, h0, *eps)
     else:
         g = torch.Generator("cuda").manual_seed(2)
         batch, mask = runner.ring.sample(g, cfg.batch_size)
@@ -1676,34 +1760,336 @@ def drive_path7(name, counters):
         one_update()
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - s) / 10 * 1e3
-    rest_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (n_timed * iters) * 1e3
-    runner, prof = profile_block(train_block, runner, update_ms=update_ms)
+    rest_ms = (sum(walls) - sum(updates) / per_call * update_ms / 1e3) / (n_timed * iters) * 1e3
+    t_prof = time.perf_counter()
+    runner, prof = profile_block(train_block, runner, update_ms=update_ms / per_call)
+    t_prof = time.perf_counter() - t_prof
 
     log(f"[{name}] {cfg.env_type} {cfg.env_name}, {cfg.num_envs} envs, "
         f"{meta['steps_per_block']} env steps per train_block, GRU route "
         f"{meta.get('gru_impl')!r}; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
         f"timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with {updates} updates; "
         f"env-steps/s {sps:.1f}")
-    log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an env step (act, env "
-        f"step, replay or rollout write) {rest_ms:.3f} ms; peak device memory "
+    log(f"[{name}] one update call alone {update_ms:.3f} ms wall; the rest of an env step "
+        f"(act, env step, replay or rollout write) {rest_ms:.3f} ms; peak device memory "
         f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before init")
-    log(f"[{name}] kernel launches {launches} = {per_update} per update x {num_updates} updates")
+    log(f"[{name}] kernel launches {launches} = {per_update} per update call x {calls} calls")
     log(f"[{name}] {num_updates} updates (+ {getattr(runner, 'update_debt', 0)} debt) after "
-        f"{step} {'env steps' if algo == 'coma' else 'iterations'} = the clock's {clock}; "
+        f"{step} {'env steps' if onpolicy else 'iterations'} = the clock's {clock}; "
         f"last block {json.dumps(seen[-1], sort_keys=True)}")
-    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    log(f"[{name}] eval in {t_eval:.2f} s: {json.dumps(evals, sort_keys=True)}")
     log(f"[{name}] one block ({prof['updates']} updates): device busy "
         f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
         f"{prof['wall_s']:.4f} s unprofiled{' (adjusted)' if prof['adjusted'] else ''} "
         f"({100 * prof['busy_share']:.1f} % busy), {prof['wall_profiled_s']:.4f} s under "
-        f"the profiler ({100 * prof['busy_share_profiled']:.1f} % busy)")
+        f"the profiler ({100 * prof['busy_share_profiled']:.1f} % busy); profiled and matched "
+        f"blocks with the trace read {t_prof:.2f} s")
     for k in prof["top"]:
         log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
     return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
                 warmup_blocks=n_warm, update_ms=update_ms, iteration_rest_ms=rest_ms,
                 path_peak_mib=(peak - base) / 2**20, launches=launches,
-                launches_per_update=per_update, num_updates=num_updates, step=step,
-                clock=clock, metrics=seen[-1], eval=evals, block_profile=prof)
+                launches_per_update=per_update, update_calls=calls, num_updates=num_updates,
+                step=step, clock=clock, metrics=seen[-1], eval=evals, block_profile=prof,
+                eval_s=t_eval, profile_s=t_prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: IPPO, pursuit and LBF, the host-env route, SMAClite collisions
+# ---------------------------------------------------------------------------
+
+# the JAX package's validated recipes (scripts/validate_baselines.py:60-71
+# ippo_lbf, :155-166 ippo_rnn_lbf, :168-181 coma_rnn_lbf, :224-234
+# vdn_pursuit, :237-248 ippo_pursuit, :442-455 coma_lbf), copied, not
+# imported; random weights, seed 0
+LBF_MAP = "Foraging-8x8-2p-3f-v3"
+_IPPO_LBF = dict(env_type="lbf", env_name=LBF_MAP, num_envs=64, total_timesteps=2_000_000,
+                 learning_rate_actor=5e-4, learning_rate_critic=5e-4, entropy_coef=0.01,
+                 anneal_entropy=True, epochs=4, normalize_advantage=True, actor_hidden_dim=64,
+                 critic_hidden_dim=64, log_interval=4, seed=0, verbose=False)
+_COMA_LBF = dict(env_type="lbf", env_name=LBF_MAP, num_envs=64, total_timesteps=2_000_000,
+                 per_agent_rewards=True, entropy_coef=0.003, exploration_fraction=3000.0,
+                 learning_rate_actor=1e-4, learning_rate_critic=3e-4, anneal_lr=True,
+                 actor_hidden_dim=64, critic_hidden_dim=128, log_interval=4, seed=0,
+                 verbose=False)
+PATHS8 = {
+    "ippo_pursuit": ("ippo", dict(env_type="pursuit", num_envs=64, total_timesteps=2_000_000,
+                                  rollout_len=100, epochs=4, entropy_coef=0.01,
+                                  anneal_entropy=True, normalize_advantage=True,
+                                  learning_rate_actor=5e-4, learning_rate_critic=5e-4,
+                                  actor_hidden_dim=64, critic_hidden_dim=64, log_interval=2,
+                                  seed=0, verbose=False)),
+    "ippo_lbf": ("ippo", _IPPO_LBF),
+    "ippo_rnn_lbf": ("ippo", dict(_IPPO_LBF, recurrent=True)),
+    "coma_lbf": ("coma", dict(_COMA_LBF, bootstrap_truncation=True)),
+    "coma_rnn_lbf": ("coma", dict(_COMA_LBF, recurrent=True, bootstrap_truncation=False)),
+    "vdn_pursuit": ("vdn", dict(env_type="pursuit", num_envs=32, total_timesteps=2_000_000,
+                                buffer_size=100_000, batch_size=4, learning_starts=10_000,
+                                train_freq=1, exploration_fraction=0.1, hidden_dim=64,
+                                log_interval=200, seed=0, verbose=False)),
+}
+# driven by drive_recipe; vdn_pursuit by drive_offpolicy; ippo_lbf and
+# coma_lbf differ from the driven LBF recipes only by recurrence or the
+# truncation bootstrap, and are held card vs CPU
+PATHS8_DRIVEN = ("ippo_pursuit", "ippo_rnn_lbf", "coma_rnn_lbf")
+# K1, K2, K3, dw per update call (IPPO: per rollout, 4 epochs x 1 minibatch)
+PATHS8_LAUNCHES = {"ippo_pursuit": (1, 0, 0, 0), "ippo_rnn_lbf": (1, 4, 4, 4),
+                   "coma_rnn_lbf": (1, 1, 1, 1)}
+LBF_RNN_SHAPE = (150, 128, 64)     # an LBF rollout of 64 envs x 2 agents at H=64
+IPPO_RNN_CLI = ["--env_type", "lbf", "--env_name", LBF_MAP, "--device", "cuda",
+                "--num_envs", "64", "--recurrent", "true", "--actor_hidden_dim", "64",
+                "--log_interval", "1", "--total_timesteps", "9600", "--eval_steps", "9600",
+                "--seed", "0"]
+
+
+def check_paths8_shapes(results):
+    """K1 at IPPO's update shapes on pursuit (T=100, 64 envs x 8 pursuers)
+    and LBF (T=150, 64 x 2), the team reward and flag broadcast over the
+    agents, and at COMA's on LBF (per-agent rewards: only the flag is
+    broadcast, so the kernel reads both materialised); K2, K3 and dw at
+    the recurrent IPPO and COMA updates' shape on LBF (T=150, M=128, H=64)
+    with per-env resets and a carried h0. Adds ``ippo_pursuit_shape``,
+    ``ippo_lbf_shape`` and ``coma_lbf_shape`` to K1's row and
+    ``lbf_rnn_shapes`` to each tensor-core GRU row."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(12)
+    lam_coma = PATHS8["coma_rnn_lbf"][1].get("td_lambda", 0.8)
+    for key, (T, E, n), p_end, lam, per_agent, label in (
+            ("ippo_pursuit_shape", (100, 64, 8), 0.002, 0.95, False, "IPPO's shape on pursuit"),
+            ("ippo_lbf_shape", (150, 64, 2), 0.02, 0.95, False, "IPPO's shape on LBF"),
+            ("coma_lbf_shape", (150, 64, 2), 0.02, lam_coma, True,
+             "COMA's shape on LBF, per-agent rewards")):
+        r = torch.randn((T, E, n) if per_agent else (T, E), generator=g, device="cuda")
+        r = r if per_agent else r[..., None].expand(T, E, n)
+        e = (torch.rand(T, E, generator=g, device="cuda") < p_end)[..., None].expand(T, E, n)
+        v = torch.randn(T, E, n, generator=g, device="cuda")
+        b = torch.randn(E, n, generator=g, device="cuda")
+        time_k1_at(results, key, r, e, v, b, lam, (1, 1) if per_agent else (n, 1), label)
+
+    T, M, H = LBF_RNN_SHAPE
+    ended = torch.rand(T, M // 2, generator=g, device="cuda") < 0.02
+    keep = (1.0 - ended.float())[..., None].expand(T, M // 2, 2).reshape(T, M).contiguous()
+    errs, ins, hs, rec = check_gru_shape(T, M, H, seed=1281, keep=keep)
+    add_shape_rows(results, "lbf_rnn_shapes", T, M, H, time_gru(T, M, H, ins, hs, rec))
+    keep_max_err(results, errs)
+
+
+def profile_env_step(env_type, env_name, num_envs, n_prof=10):
+    """One ``VecEnv.step`` of ``num_envs`` envs on the card (the env step and
+    the reset it selects from) and its two parts alone: host ms a call
+    (synchronised), then each under ``torch.profiler`` for its device ops
+    and device time a call, over ``n_prof`` calls after a discarded
+    warm-up step of the profiler (a lone short call can lose its records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from cleanmarl_tpu_torch.envs import registry
+    from cleanmarl_tpu_torch.envs.base import VecEnv
+
+    env = registry.make(env_type, env_name, agent_ids=True)
+    vec = VecEnv(env, num_envs)
+    gen = torch.Generator("cuda").manual_seed(0)
+    state, ts = vec.reset(gen)
+    actions = vec.sample(gen, ts.avail)
+    parts = {"vec_step": lambda: vec.step(state, actions, gen),
+             "env_step": lambda: env.step(state, actions, gen),
+             "reset": lambda: env.reset(num_envs, gen)}
+    out = {}
+    for part, fn in parts.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 20
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(n_prof):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        kernels = device_kernels(prof)
+        ops = sum(c for _, c in kernels.values())
+        if ops == 0:
+            fail(f"{env_type} {part}: the profiler recorded no device op in {n_prof} calls")
+        out[part] = dict(wall_ms=wall * 1e3, device_ops=ops / n_prof,
+                         device_ms=sum(sec for sec, _ in kernels.values()) * 1e3 / n_prof)
+    log(f"[paths8] {env_type} {env_name or ''} VecEnv.step at {num_envs} envs, device ops "
+        f"and ms a call over {n_prof} profiled calls: " + "; ".join(
+        f"{k} {v['device_ops']:g} device ops, {v['device_ms']:.3f} ms device, "
+        f"{v['wall_ms']:.3f} ms wall" for k, v in out.items()))
+    return out
+
+
+def check_host_route(counters):
+    """The host-env route on the card: a numpy host env written here, behind
+    ``HostEnvFamily``: 12 steps of 8 envs whose live and pre-reset
+    ``final`` views (obs, state, reward, done, battle_won, agent_rewards)
+    equal the host envs' own arrays, as tensors on the card; then one IPPO
+    block (K1 once per rollout) and one QMIX episode-ring block on it."""
+    import numpy as np
+    import torch
+    from cleanmarl_tpu_torch.algos import ippo, qmix
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.envs.external import HostEnvFamily
+
+    class CountingHostEnv:
+        """2 agents, 3 actions; episodes of 3 or 4 steps (by the reset
+        seed's parity) that end by ``done``; obs and state carry the step
+        and the seed; reward = half the sum of the actions, agent_rewards
+        = half each action; battle_won on an episode's last step iff every
+        agent played 1. Keeps what its last ``step`` returned."""
+        n_agents, obs_dim, state_dim, n_actions, episode_limit = 2, 4, 6, 3, 5
+        provides_agent_rewards = True
+
+        def __init__(self):
+            self.t, self.seed, self.last = 0, 0, None
+
+        def close(self):
+            pass
+
+        def reset(self, seed=None):
+            self.t, self.seed = 0, int(seed) % 1000
+            return self.obs()
+
+        def obs(self):
+            return np.stack([np.array([self.t, self.seed / 1000, i, 1.0], np.float32)
+                             for i in range(2)])
+
+        def get_state(self):
+            return np.array([self.t, self.seed / 1000, 0, 1, 2, 3], np.float32)
+
+        def get_avail_actions(self):
+            return np.ones((2, 3), bool)
+
+        def step(self, actions):
+            actions = np.asarray(actions)
+            self.t += 1
+            done = self.t >= 3 + self.seed % 2
+            info = {"battle_won": float(done and (actions == 1).all()),
+                    "agent_rewards": 0.5 * actions.astype(np.float32)}
+            self.last = (self.obs(), self.get_state(), 0.5 * float(actions.sum()), done, info)
+            return self.last[0], self.last[2], done, False, info
+
+    fam = HostEnvFamily(CountingHostEnv, seed=0)
+    vec = fam.make_vec(8)
+    gen = torch.Generator("cuda").manual_seed(3)
+    state, ts = vec.reset(gen)
+    ends = 0
+    for _ in range(12):
+        state, ts, final = vec.step(state, vec.sample(gen, ts.avail), gen)
+        views = [ts.obs, ts.state, ts.avail, ts.reward, final.obs, final.info["agent_rewards"]]
+        if not all(x.is_cuda for x in views):
+            fail("the host route returned tensors off the card")
+        for i, env in enumerate(vec.envs):
+            obs, st, reward, done, info = env.last
+            pairs = {"final obs": (final.obs[i], obs), "final state": (final.state[i], st),
+                     "final reward": (final.reward[i], reward), "reward": (ts.reward[i], reward),
+                     "done": (final.done[i], done),
+                     "battle_won": (final.info["battle_won"][i], info["battle_won"]),
+                     "agent_rewards": (ts.info["agent_rewards"][i], info["agent_rewards"]),
+                     "live obs": (ts.obs[i], env.obs()),
+                     "live state": (ts.state[i], env.get_state())}
+            for k, (got, want) in pairs.items():
+                got_np = got.cpu().numpy()
+                if not np.array_equal(got_np, np.asarray(want, dtype=got_np.dtype)):
+                    fail(f"host route: env {i} {k} {got.cpu().numpy()} differs from the host "
+                         f"env's {want}")
+            ends += done
+    if not ends:
+        fail("host route: no episode ended in 12 steps")
+    log(f"[host] 12 steps of 8 host envs: live and final obs, state, reward, done, battle_won "
+        f"and agent_rewards equal the host envs' arrays ({ends} episode ends)")
+
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    cfg = ippo.IPPOConfig(env_type="pz", num_envs=8, rollout_len=10, log_interval=2,
+                          actor_hidden_dim=16, critic_hidden_dim=16, num_eval_ep=2, seed=0,
+                          verbose=False)
+    init, train_block, _, _ = ippo.make_train(cfg, env=fam)
+    _, m_ippo = train_block(init(torch.Generator("cuda").manual_seed(0)))
+    m_ippo = to_host(m_ippo)
+    k1 = counters[0]["lambda_returns"]
+    cfg = qmix.QMIXConfig(env_type="pz", num_envs=8, buffer_size=64, batch_size=4, hidden_dim=16,
+                          hyper_dim=8, embed_dim=4, log_interval=25, num_eval_ep=2, seed=0,
+                          start_e=1.0, end_e=1.0, verbose=False)
+    init, train_block, eval_fn, _ = qmix.make_train(cfg, fam)
+    runner, m_qmix = train_block(init(torch.Generator("cuda").manual_seed(0)))
+    m_qmix = to_host(m_qmix)
+    ev = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
+    for k, v in list(m_ippo.items()) + list(m_qmix.items()) + list(ev.items()):
+        if not math.isfinite(v):
+            fail(f"host route: non-finite metric {k}={v}")
+    if k1 != 2 or runner.num_updates == 0 or m_qmix["rollout/num_episodes"] < 40 \
+            or not 3.0 <= ev["eval/ep_length"] <= 4.0:
+        fail(f"host route: K1 launched {k1} times in 2 IPPO rollouts, QMIX ran "
+             f"{runner.num_updates} updates over {m_qmix['rollout/num_episodes']} episodes, "
+             f"eval episodes of {ev['eval/ep_length']} steps")
+    log(f"[host] one IPPO block (2 rollouts, K1 {k1}x): actor loss "
+        f"{m_ippo['train/actor_loss']:.4f}; one QMIX block: {runner.num_updates} updates over "
+        f"{m_qmix['rollout/num_episodes']:.0f} episodes, loss {m_qmix['train/loss']:.4f}, "
+        f"battle_won {m_qmix['rollout/battle_won']:.3f}; eval {json.dumps(ev, sort_keys=True)}")
+    return dict(ippo=m_ippo, qmix=m_qmix, eval=ev, launches={"lambda_returns": k1},
+                episode_ends=ends)
+
+
+def check_collisions(counters):
+    """SMAClite 3m with ``unit_collisions``: one step of 64 envs from spawns
+    squeezed together on the card against the CPU env (positions, obs,
+    state, reward within 1e-5; the push-out moved units), then one MAPPO
+    block at the bench widths with the kernel counts read."""
+    import dataclasses
+    import torch
+    from cleanmarl_tpu_torch.algos.mappo import make_train
+    from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.core.params import tree_map
+    from cleanmarl_tpu_torch.envs import smaclite
+
+    cpu = smaclite.make("3m", unit_collisions=True, device="cpu")
+    card = smaclite.make("3m", unit_collisions=True)
+    s, _ = cpu.reset(64, torch.Generator().manual_seed(0))
+    s = dataclasses.replace(
+        s, ally_pos=16.0 + 0.3 * (s.ally_pos - s.ally_pos.mean(1, keepdim=True)),
+        enemy_pos=16.5 + 0.3 * (s.enemy_pos - s.enemy_pos.mean(1, keepdim=True)))
+    actions = cpu.sample(torch.Generator().manual_seed(1), cpu._avail(s))
+    s_c, ts_c = cpu.step(s, actions)
+    s_g, ts_g = card.step(tree_map(lambda x: x.cuda(), s), actions.cuda())
+    plain, _ = smaclite.make("3m", device="cpu").step(s, actions)
+    pairs = [(s_g.ally_pos, s_c.ally_pos), (s_g.enemy_pos, s_c.enemy_pos), (ts_g.obs, ts_c.obs),
+             (ts_g.state, ts_c.state), (ts_g.reward, ts_c.reward)]
+    err = max_err([a.cpu() for a, _ in pairs], [b for _, b in pairs])
+    moved = float((s_c.ally_pos - plain.ally_pos).abs().max())
+    if err > 1e-5 or moved <= 0.0:
+        fail(f"3m with collisions: card vs CPU max |diff| {err:.3e}, push-out moved units by "
+             f"{moved:.3e}")
+
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    cfg = PPOConfig(**BENCH, unit_collisions=True, device="cuda")
+    init, train_block, _, meta = make_train(cfg)
+    t0 = time.perf_counter()
+    _, metrics = train_block(init(torch.Generator("cuda").manual_seed(0)))
+    metrics = to_host(metrics)
+    wall = time.perf_counter() - t0
+    launches = {k: v for table in counters for k, v in table.items()}
+    for k, v in metrics.items():
+        if not math.isfinite(v):
+            fail(f"3m with collisions: non-finite metric {k}={v}")
+    if min(launches[k] for k in KERNEL_KEYS) <= 0:
+        fail(f"3m with collisions: a kernel of the path did not launch: {launches}")
+    log(f"[collisions] one step of 64 squeezed 3m envs, card vs CPU: max |diff| {err:.3e} "
+        f"(the push-out moved allies up to {moved:.3f}); one MAPPO block at the bench widths "
+        f"({meta['steps_per_block']} env steps, incl. init) {wall:.3f} s, launches {launches}, "
+        f"ep_reward {metrics.get('rollout/ep_reward', float('nan')):.4f}")
+    return dict(max_abs_err=err, moved=moved, block_s=wall, launches=launches, metrics=metrics)
 
 
 def main():
@@ -1749,6 +2135,7 @@ def main():
     check_rnn_seq_apply()
     rq_routes = check_recurrent_q_shapes(results)
     check_paths7_shapes(results)
+    check_paths8_shapes(results)
 
     # phase 3: the main path
     check_update_against_cpu()
@@ -1761,6 +2148,7 @@ def main():
     run_cli("qmix_rnn", QMIX_RNN_CLI)
     run_cli("maddpg", MADDPG_RNN_CLI)
     run_cli("coma", COMA_RNN_CLI)
+    run_cli("ippo", IPPO_RNN_CLI)
 
     # phase 5: the off-policy slice (no kernel on its path)
     check_offpolicy_updates_against_cpu()
@@ -1774,21 +2162,49 @@ def main():
 
     # phase 7: MADDPG, FACMAC and COMA
     t7 = time.perf_counter()
-    check_paths7_updates_against_cpu()
-    paths7 = {name: drive_path7(name, counters) for name in PATHS7}
+    check_updates_against_cpu(PATHS7, "paths7")
+    paths7 = {name: drive_recipe(name, counters) for name in PATHS7}
     log(f"[paths7] phase 7 in {time.perf_counter() - t7:.1f} s")
 
+    # phase 8: IPPO, pursuit and LBF, the host-env route, SMAClite collisions
+    t8 = lap = time.perf_counter()
+
+    def lap_s():
+        nonlocal lap
+        lap, dt = time.perf_counter(), time.perf_counter() - lap
+        return f"{dt:.1f} s"
+    env_steps = {name: profile_env_step(*args, 64) for name, args in (
+        ("pursuit", ("pursuit", "pursuit_v4")), ("lbf", ("lbf", LBF_MAP)))}
+    check_updates_against_cpu(PATHS8, "paths8")
+    log(f"[paths8] env steps profiled and updates held card vs CPU in {lap_s()}")
+    paths8 = {}
+    for name in PATHS8_DRIVEN:
+        paths8[name] = drive_recipe(name, counters)
+        log(f"[paths8] {name} driven in {lap_s()}")
+    paths8["vdn_pursuit"] = drive_offpolicy("vdn_pursuit", counters)
+    if any(paths8["vdn_pursuit"]["launches"].values()):
+        fail(f"vdn_pursuit launched a kernel: {paths8['vdn_pursuit']['launches']}")
+    log(f"[paths8] vdn_pursuit driven in {lap_s()}")
+    host_route = check_host_route(counters)
+    log(f"[paths8] host route in {lap_s()}")
+    collisions = check_collisions(counters)
+    log(f"[paths8] collisions in {lap_s()}; phase 8 in {time.perf_counter() - t8:.1f} s")
+
     by_path = {"mappo": main_path["launches"],
-               **{k: v["launches"] for k, v in {**recq, **paths7}.items()}}
+               **{k: v["launches"] for k, v in {**recq, **paths7, **paths8}.items()},
+               "host_ippo": dict(dict.fromkeys(KERNEL_KEYS, 0), **host_route["launches"]),
+               "mappo_3m_collisions": collisions["launches"]}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
-                    launches_by_path={p: c[name] for p, c in by_path.items()}, **r)
+                    launches_by_path={p: c.get(name, 0) for p, c in by_path.items()}, **r)
                for name, r in results.items()]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                            kernels=kernels, gru_times=gru_times, main_path=main_path,
                            mma_tf32_tflops=mma_tflops, offpolicy=offpolicy,
-                           recurrent_q_routes=rq_routes, recurrent_q=recq, paths7=paths7),
+                           recurrent_q_routes=rq_routes, recurrent_q=recq, paths7=paths7,
+                           env_steps=env_steps, paths8=paths8, host_route=host_route,
+                           collisions=collisions),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -2,8 +2,11 @@
 
 The module tree mirrors the JAX package (``envs/``, ``core/``,
 ``buffers/``, ``ops/``, ``algos/``) so each module's counterpart is easy
-to find. Ported: MAPPO on SMAClite, QMIX and VDN on MPE (and every env of
-those families). Differences in idiom:
+to find. Ported: the seven algorithms (IPPO, MAPPO, QMIX, VDN and their
+recurrent forms, MADDPG, FACMAC, COMA) and every env family (SMAClite,
+MPE, the matrix game, SISL pursuit, LBF, and host PettingZoo envs through
+``envs/external.py``); checkpoints and data-parallel training are not.
+Differences in idiom:
 
 - envs are natively batched over a leading ``num_envs`` axis (no vmap);
 - randomness comes from explicit ``torch.Generator``s, not PRNG keys;

@@ -49,7 +49,8 @@ from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
 from cleanmarl_tpu_torch.envs import registry
-from cleanmarl_tpu_torch.envs.base import VecEnv, categorical
+from cleanmarl_tpu_torch.envs.base import categorical
+from cleanmarl_tpu_torch.envs.external import as_vec
 from cleanmarl_tpu_torch.ops.returns import lambda_returns, nstep_returns
 
 
@@ -173,8 +174,12 @@ def check_config(cfg: COMAConfig, env) -> None:
             "stream to resume (reference coma_lbf.py is feed-forward)"
         )
     if cfg.per_agent_rewards:
-        _, ts = env.reset(1, torch.Generator(env.device).manual_seed(0))
-        if "agent_rewards" not in ts.info:
+        if hasattr(env, "make_vec"):        # a host family declares it
+            reports = env.provides_agent_rewards
+        else:
+            _, ts = env.reset(1, torch.Generator(env.device).manual_seed(0))
+            reports = "agent_rewards" in ts.info
+        if not reports:
             raise ValueError(
                 "--per_agent_rewards needs an env that reports per-agent "
                 "rewards in info['agent_rewards'] (LBF with "
@@ -197,7 +202,7 @@ def make_train(cfg: COMAConfig, env=None):
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
     check_config(cfg, env)
-    vec = VecEnv(env, cfg.num_envs)
+    vec = as_vec(env, cfg.num_envs)
     rollout_len = cfg.rollout_len or env.episode_limit
     total_updates = max(cfg.total_timesteps // (rollout_len * cfg.num_envs), 1)
     n_updates = total_updates if cfg.anneal_lr else 0

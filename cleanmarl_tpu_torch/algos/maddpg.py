@@ -49,7 +49,7 @@ from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.envs import registry
-from cleanmarl_tpu_torch.envs.base import VecEnv
+from cleanmarl_tpu_torch.envs.external import as_vec
 
 
 @dataclass
@@ -212,7 +212,7 @@ def make_train(cfg: MADDPGConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = VecEnv(env, cfg.num_envs)
+    vec = as_vec(env, cfg.num_envs)
     actor_opt = make_optimizer(cfg.optimizer, cfg.learning_rate_actor, cfg.clip_gradients)
     critic_opt = make_optimizer(cfg.optimizer, cfg.learning_rate_critic, cfg.clip_gradients)
     n_slots = cadence.num_slots(cfg.max_updates_per_iter, cfg.num_envs)

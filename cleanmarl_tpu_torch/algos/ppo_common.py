@@ -38,7 +38,8 @@ from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.envs import registry
-from cleanmarl_tpu_torch.envs.base import VecEnv, categorical
+from cleanmarl_tpu_torch.envs.base import categorical
+from cleanmarl_tpu_torch.envs.external import as_vec
 from cleanmarl_tpu_torch.ops.returns import lambda_advantages
 
 
@@ -49,6 +50,10 @@ class PPOConfig:
     env_name: str = ""
     env_family: str = "mpe"
     agent_ids: bool = True
+    # SMAClite's opt-in unit push-out; the JAX recipe builds that env by
+    # hand (scripts/mappo_3m_run.py --unit_collisions), the port's CLI
+    # takes it as a flag
+    unit_collisions: bool = False
     num_envs: int = 16
     rollout_len: int = 0            # 0 → env.episode_limit
     recurrent: bool = False         # GRU actor
@@ -159,10 +164,14 @@ def vnorm_update(vn, batch, w=None):
 def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
                algo_name: str = "IPPO"):
     device = resolve_device(cfg.device)
+    if cfg.unit_collisions and (env is not None or cfg.env_type != "smaclite"):
+        raise ValueError("--unit_collisions applies to --env_type smaclite built from "
+                         "the config")
     if env is None:
+        env_kw = {"unit_collisions": True} if cfg.unit_collisions else {}
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
-                            env_family=cfg.env_family, device=device)
-    vec = VecEnv(env, cfg.num_envs)
+                            env_family=cfg.env_family, device=device, **env_kw)
+    vec = as_vec(env, cfg.num_envs)
     rollout_len = cfg.rollout_len or env.episode_limit
     n_mb = max(1, cfg.num_minibatches)
     if cfg.num_envs % n_mb:

@@ -41,7 +41,7 @@ from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
 from cleanmarl_tpu_torch.envs import registry
-from cleanmarl_tpu_torch.envs.base import VecEnv
+from cleanmarl_tpu_torch.envs.external import as_vec
 
 
 @dataclass
@@ -125,7 +125,7 @@ def make_train(cfg: QMIXConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = VecEnv(env, cfg.num_envs)
+    vec = as_vec(env, cfg.num_envs)
     opt = make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.clip_gradients)
     eps_duration = cfg.exploration_fraction * cfg.total_timesteps
     n_slots = cadence.num_slots(cfg.max_updates_per_iter, cfg.num_envs)

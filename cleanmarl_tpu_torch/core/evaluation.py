@@ -11,7 +11,8 @@ from typing import Any, Callable
 
 import torch
 
-from cleanmarl_tpu_torch.envs.base import Environment, VecEnv
+from cleanmarl_tpu_torch.envs.base import Environment
+from cleanmarl_tpu_torch.envs.external import as_vec
 
 # policy(params, carry, obs, avail, generator) -> (carry, actions)
 PolicyFn = Callable[..., Any]
@@ -20,7 +21,7 @@ PolicyFn = Callable[..., Any]
 def make_evaluator(env: Environment, num_eval_ep: int, policy: PolicyFn,
                    init_carry: Callable[[int], Any] = lambda n: ()):
     """Returns eval_fn(params, generator) -> dict of scalar tensors."""
-    vec = VecEnv(env, num_eval_ep, auto_reset=False)
+    vec = as_vec(env, num_eval_ep, auto_reset=False)
 
     @torch.no_grad()
     def eval_fn(params, generator):

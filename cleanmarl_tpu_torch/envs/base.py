@@ -36,11 +36,13 @@ def state_where(mask: torch.Tensor, a, b):
 def state_from_numpy(cls, fields, device, batched: bool = True):
     """Build an env state of dataclass ``cls`` from a mapping of numpy
     arrays (e.g. a JAX env state as numpy): floats → float32, integers →
-    int64. ``batched=False`` adds the leading env axis of size 1."""
+    int64, booleans stay boolean. ``batched=False`` adds the leading env
+    axis of size 1."""
     out = {}
     for f in dataclasses.fields(cls):
         a = np.asarray(fields[f.name])
-        a = a.astype(np.int64 if np.issubdtype(a.dtype, np.integer) else np.float32)
+        if a.dtype != np.bool_:
+            a = a.astype(np.int64 if np.issubdtype(a.dtype, np.integer) else np.float32)
         t = torch.from_numpy(np.array(a)).to(device)
         out[f.name] = t if batched else t[None]
     return cls(**out)

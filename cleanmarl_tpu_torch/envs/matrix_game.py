@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.envs.base import Environment
 from cleanmarl_tpu_torch.types import TimeStep
 
@@ -26,7 +27,7 @@ class MatrixGameState:
 class MatrixGame(Environment):
     def __init__(self, n_agents: int = 2, n_actions: int = 3,
                  episode_limit: int = 8, done_on_jackpot: bool = False,
-                 mask_trick: bool = True, device="cpu"):
+                 mask_trick: bool = True, device="cuda"):
         self.n_agents = n_agents
         self.n_actions = n_actions
         self.episode_limit = episode_limit
@@ -34,7 +35,7 @@ class MatrixGame(Environment):
         self.mask_trick = mask_trick
         self.obs_dim = n_actions
         self.state_dim = n_actions * n_agents
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _obs(self, t):
         g = torch.remainder(t, self.n_actions)

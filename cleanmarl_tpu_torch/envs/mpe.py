@@ -27,6 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.envs.base import Environment
 from cleanmarl_tpu_torch.types import TimeStep
 
@@ -111,7 +112,7 @@ class SimpleSpread(_MPE):
     """
 
     def __init__(self, n_agents: int = 3, local_ratio: float = 0.5,
-                 max_cycles: int = 25, device="cpu"):
+                 max_cycles: int = 25, device="cuda"):
         self.n_agents = n_agents
         self.n_landmarks = n_agents
         self.local_ratio = local_ratio
@@ -123,7 +124,7 @@ class SimpleSpread(_MPE):
         self.obs_dim = 2 + 2 + 2 * self.n_landmarks + 2 * (n_agents - 1) \
             + self.c_dim * (n_agents - 1)
         self.state_dim = self.obs_dim * n_agents
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # others[i] = every agent but i, in order (the JAX jnp.delete)
         self._others = torch.tensor(
             [[j for j in range(n_agents) if j != i] for i in range(n_agents)],
@@ -192,7 +193,7 @@ class SimpleSpeakerListener(_MPE):
     utterance reaches the listener's obs on the next step.
     """
 
-    def __init__(self, max_cycles: int = 25, device="cpu"):
+    def __init__(self, max_cycles: int = 25, device="cuda"):
         self.n_agents = 2
         self.n_landmarks = 3
         self.episode_limit = max_cycles
@@ -202,7 +203,7 @@ class SimpleSpeakerListener(_MPE):
         self.state_dim = self.obs_dim * 2
         self.landmark_size = 0.04
         self.listener_size = 0.075
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._avail_row = torch.tensor([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]],
                                        dtype=torch.bool, device=self.device)
 
@@ -266,7 +267,7 @@ class SimpleReference(_MPE):
     - agents do not collide; utterances reach the next step's obs.
     """
 
-    def __init__(self, max_cycles: int = 25, local_ratio: float = 0.5, device="cpu"):
+    def __init__(self, max_cycles: int = 25, local_ratio: float = 0.5, device="cuda"):
         self.n_agents = 2
         self.n_landmarks = 3
         self.episode_limit = max_cycles
@@ -276,7 +277,7 @@ class SimpleReference(_MPE):
         self.n_actions = self.n_move * self.c_dim     # Discrete(50)
         self.obs_dim = 2 + 2 * self.n_landmarks + 3 + self.c_dim
         self.state_dim = self.obs_dim * self.n_agents
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._other = torch.tensor([1, 0], dtype=torch.int64, device=self.device)
         self._movable = torch.ones((2,), dtype=torch.bool, device=self.device)
 
@@ -320,7 +321,7 @@ class SimpleReference(_MPE):
                                   t2 >= self.episode_limit)
 
 
-def make(env_name: str, device="cpu", **kwargs) -> Environment:
+def make(env_name: str, device="cuda", **kwargs) -> Environment:
     name = env_name.lower()
     if name.startswith("simple_spread"):
         return SimpleSpread(device=device, **kwargs)

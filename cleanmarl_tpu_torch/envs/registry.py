@@ -1,24 +1,23 @@
 """Environment registry (port of ``cleanmarl_tpu/envs/registry.py``).
 
-The ``matrix``, ``smaclite`` and ``mpe`` families are ported (``pz`` with
-``env_family="mpe"`` is MPE, as in the JAX package); every other
-``env_type`` or ``pz`` family raises and names the ROADMAP item that
-ports it.
+``make(env_type, env_name, ...)`` builds one env of a family: ``matrix``,
+``mpe`` (and ``pz`` with ``env_family="mpe"``), ``smaclite``, ``pursuit``
+and ``lbf`` are batched torch envs on ``device``; ``pz`` with any other
+family is a real PettingZoo env stepped on the host
+(``envs/external.HostEnvFamily`` over ``envs/pettingzoo_host``), whose
+tensors land on ``device``. The device defaults to the card and resolves
+through ``core/device.resolve_device``: asking for it without one raises.
 """
 from __future__ import annotations
 
+from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.envs.wrappers import AgentIDWrapper
-
-_NOT_PORTED = {
-    "pz": "ROADMAP Queue A, Slice 6 (host envs)",
-    "pursuit": "ROADMAP Queue A, Slice 4 (envs/pursuit.py)",
-    "lbf": "ROADMAP Queue A, Slice 5 (envs/lbf.py)",
-}
 
 
 def make(env_type: str, env_name: str, agent_ids: bool = False,
-         env_family: str = "mpe", device="cpu", **kwargs):
+         env_family: str = "mpe", device="cuda", **kwargs):
     env_type = env_type.lower()
+    device = resolve_device(device)
     if env_type == "matrix":
         from cleanmarl_tpu_torch.envs.matrix_game import MatrixGame
 
@@ -27,17 +26,29 @@ def make(env_type: str, env_name: str, agent_ids: bool = False,
         from cleanmarl_tpu_torch.envs import mpe
 
         env = mpe.make(env_name, device=device, **kwargs)
+    elif env_type == "pz":
+        # a real PettingZoo env on the host; agent ids come from the host
+        # adapter, so no AgentIDWrapper
+        from cleanmarl_tpu_torch.envs.external import HostEnvFamily
+        from cleanmarl_tpu_torch.envs.pettingzoo_host import PettingZooHostEnv
+
+        return HostEnvFamily(
+            lambda: PettingZooHostEnv(env_family, env_name, agent_ids=agent_ids,
+                                      **kwargs),
+            device=device)
     elif env_type == "smaclite":
         from cleanmarl_tpu_torch.envs import smaclite
 
         env = smaclite.make(env_name, device=device, **kwargs)
-    elif env_type in _NOT_PORTED:
-        what = f"env_type {env_type!r}" + (
-            f" with env_family {env_family!r}" if env_type == "pz" else "")
-        raise NotImplementedError(
-            f"{what} is not ported to cleanmarl_tpu_torch yet; "
-            f"see {_NOT_PORTED[env_type]}"
-        )
+    elif env_type == "pursuit":
+        # env_name is accepted for CLI symmetry ("pursuit_v4")
+        from cleanmarl_tpu_torch.envs.pursuit import Pursuit
+
+        env = Pursuit(device=device, **kwargs)
+    elif env_type == "lbf":
+        from cleanmarl_tpu_torch.envs import lbf
+
+        env = lbf.make(env_name, device=device, **kwargs)
     else:
         raise ValueError(f"unknown env_type {env_type!r}")
     if agent_ids:

@@ -13,7 +13,8 @@ booleans fixed at construction, exactly as in the JAX module. Reset
 draws the spawn jitter from the caller's ``torch.Generator``; ``_step``
 is deterministic.
 
-``unit_collisions=True`` is not ported yet (ROADMAP Queue A) and raises.
+``unit_collisions=True`` adds the JAX module's pairwise push-out of
+overlapping live units after each step (``_resolve_collisions``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import List
 
 import torch
 
+from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.envs.base import Environment
 from cleanmarl_tpu_torch.types import TimeStep
 
@@ -50,6 +52,7 @@ REWARD_KILL = 10.0
 REWARD_WIN = 200.0
 REWARD_SCALE = 20.0
 SHIELD_REGEN = 2.0
+UNIT_RADIUS = 0.5     # collision radius of the opt-in unit_collisions push-out
 
 N_FIXED_ACTIONS = 6   # no-op, stop, N, S, E, W
 _MOVE_DIRS = ((0.0, 1.0), (0.0, -1.0), (1.0, 0.0), (-1.0, 0.0))
@@ -89,13 +92,9 @@ def _scatter_add(n_units: int, idx: torch.Tensor, val: torch.Tensor):
 
 class MicroCombat(Environment):
     def __init__(self, ally_types, enemy_types, time_limit: int = 150,
-                 unit_collisions: bool = False, device="cpu"):
-        if unit_collisions:
-            raise NotImplementedError(
-                "smaclite unit_collisions is not ported to cleanmarl_tpu_torch "
-                "yet (ROADMAP Queue A, Slice 1 deferrals)"
-            )
-        self.device = dev = torch.device(device)
+                 unit_collisions: bool = False, device="cuda"):
+        self.unit_collisions = unit_collisions
+        self.device = dev = resolve_device(device)
         if isinstance(ally_types, int):
             ally_types = ["marine"] * ally_types
         if isinstance(enemy_types, int):
@@ -173,6 +172,7 @@ class MicroCombat(Environment):
             dtype=torch.int64, device=dev,
         ).reshape(A, A - 1)
         self._not_self = ~torch.eye(A, dtype=torch.bool, device=dev)
+        self._not_self_units = ~torch.eye(A + E, dtype=torch.bool, device=dev)
         self._center = torch.tensor([MAP_SIZE / 2.0, MAP_SIZE / 2.0], device=dev)
         self._spawn_dest = torch.tensor([9.0, MAP_SIZE / 2.0], device=dev)
 
@@ -332,6 +332,23 @@ class MicroCombat(Environment):
         dealt = (shield - shield2) + (hp - hp2)
         return hp2, shield2, dealt
 
+    def _resolve_collisions(self, ally_pos, enemy_pos, ally_alive, enemy_alive):
+        """Pairwise push-out so live units keep 2·UNIT_RADIUS apart: two
+        Jacobi passes over the (N, A+E) units in which every overlapping
+        live pair moves each member half the overlap apart, clipped to the
+        map. Dead units neither push nor get pushed."""
+        pos = torch.cat([ally_pos, enemy_pos], dim=1)                 # (N,U,2)
+        live = torch.cat([ally_alive, enemy_alive], dim=1)            # (N,U)
+        pair = live[:, :, None] & live[:, None, :] & self._not_self_units
+        for _ in range(2):
+            delta = pos[:, :, None, :] - pos[:, None, :, :]           # (N,U,U,2)
+            dist = _norm(delta)
+            overlap = torch.clamp(2.0 * UNIT_RADIUS - dist, min=0.0) * pair
+            dirn = delta / torch.clamp(dist, min=1e-6)[..., None]
+            pos = torch.clamp(pos + torch.sum(dirn * (0.5 * overlap)[..., None], dim=2),
+                              0.5, MAP_SIZE - 0.5)
+        return pos[:, :self.n_agents], pos[:, self.n_agents:]
+
     def _step(self, s: SmacState, actions, generator):
         A, E = self.n_agents, self.n_enemies
         alive = s.ally_hp > 0.0
@@ -454,6 +471,10 @@ class MicroCombat(Environment):
         ally_shield = torch.where(
             (dmg_in <= 0.0) & (ally_hp > 0.0),
             torch.minimum(ally_shield + SHIELD_REGEN, self.a_max_sh), ally_shield)
+
+        if self.unit_collisions:
+            ally_pos, enemy_pos = self._resolve_collisions(
+                ally_pos, enemy_pos, ally_hp > 0.0, enemy_hp > 0.0)
 
         # ---- termination / reward -------------------------------------
         t2 = s.t + 1

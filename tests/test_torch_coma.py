@@ -289,7 +289,7 @@ def test_update_matches_jax(case, monkeypatch):
     kw.update(env_type="smaclite", env_name="3m", num_envs=B, rollout_len=T,
               total_timesteps=12 * T * B, actor_hidden_dim=H, critic_hidden_dim=H,
               learning_rate_actor=3e-3, learning_rate_critic=3e-3, entropy_coef=0.05)
-    env = treg.make("smaclite", "3m", agent_ids=True)
+    env = treg.make("smaclite", "3m", agent_ids=True, device="cpu")
     jcfg = jcoma.COMAConfig(**kw)
     st = start(jcfg, env, seed=len(case))
     rng = np.random.RandomState(len(case))

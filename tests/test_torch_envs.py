@@ -10,6 +10,7 @@ the JAX package's envs.
 - the matrix game, ``AgentIDWrapper`` and the registry.
 """
 import glob
+import importlib.util
 import json
 import os
 
@@ -170,20 +171,56 @@ def test_agent_id_wrapper_matches_jax():
     np.testing.assert_array_equal(obs[:, -3:], np.eye(3))
 
 
+BUILDS = {
+    "matrix": ("matrix", "", {}, "MatrixGame"),
+    "mpe": ("mpe", "simple_spread_v3", {}, "SimpleSpread"),
+    "pz_mpe": ("pz", "simple_spread_v3", {}, "SimpleSpread"),
+    "pz_sisl_host": ("pz", "pursuit_v4", dict(env_family="sisl"), "HostEnvFamily"),
+    "smaclite_collisions": ("smaclite", "3m", dict(unit_collisions=True), "MicroCombat"),
+    "pursuit": ("pursuit", "pursuit_v4", {}, "Pursuit"),
+    "lbf_coop": ("lbf", "Foraging-10x10-3p-4f-coop-v3", {}, "LBF"),
+}
+UNKNOWN = (  # env_type, name, the error
+    ("mpe", "x", "unknown MPE scenario"), ("pz", "x", "unknown MPE scenario"),
+    ("nope", "x", "unknown env_type"), ("lbf", "Foraging-weird", "unknown LBF map"),
+    ("smaclite", "x", "unknown smaclite map"))
+
+
 def test_registry_and_unported_options_raise():
-    for env_type in ("lbf", "pursuit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.make(env_type, "x")
-    # pz routes its mpe family (the default) to MPE; other families are host envs
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, Slice 6"):
-        treg.make("pz", "pursuit_v4", env_family="sisl")
-    for env_type in ("mpe", "pz"):
-        with pytest.raises(ValueError, match="unknown MPE scenario"):
-            treg.make(env_type, "x")
-    with pytest.raises(ValueError):
-        treg.make("nope", "x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.make("smaclite", "3m", unit_collisions=True)
+    """Every family now builds through the registry (nothing raises
+    NotImplementedError) on the device asked for; unknown names raise
+    ValueError."""
+    for case, (env_type, name, kw, cls) in BUILDS.items():
+        if case == "pz_sisl_host" and importlib.util.find_spec("pettingzoo") is None:
+            continue
+        env = treg.make(env_type, name, device="cpu", **kw)
+        assert type(env).__name__ == cls and env.device == torch.device("cpu"), case
+    assert treg.make("smaclite", "3m", device="cpu", unit_collisions=True).unit_collisions
+    lbf = treg.make("lbf", "Foraging-10x10-3p-4f-coop-v3", device="cpu")
+    assert lbf.coop and (lbf.grid_size, lbf.n_agents, lbf.n_foods) == (10, 3, 4)
+    for env_type, name, match in UNKNOWN:
+        with pytest.raises(ValueError, match=match):
+            treg.make(env_type, name, device="cpu")
+
+
+@pytest.mark.parametrize("factory", ["registry", "smaclite", "mpe", "matrix", "lbf",
+                                     "pursuit"])
+def test_env_factories_default_to_the_card(factory):
+    """Without a device argument every env factory and family constructor
+    asks for the card, which raises on a machine without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from cleanmarl_tpu_torch.envs import lbf, mpe, pursuit, smaclite
+    from cleanmarl_tpu_torch.envs.matrix_game import MatrixGame
+
+    build = {"registry": lambda: treg.make("smaclite", "3m"),
+             "smaclite": lambda: smaclite.MicroCombat(3, 3),
+             "mpe": lambda: mpe.make("simple_spread_v3"),
+             "matrix": lambda: MatrixGame(),
+             "lbf": lambda: lbf.make("Foraging-8x8-2p-3f-v3"),
+             "pursuit": lambda: pursuit.Pursuit()}[factory]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
 
 
 def test_sampling_respects_avail():
@@ -191,3 +228,87 @@ def test_sampling_respects_avail():
     _, ts = tenv.reset(64, torch.Generator().manual_seed(0))
     a = tenv.sample(torch.Generator().manual_seed(1), ts.avail)
     assert torch.gather(ts.avail, -1, a[..., None]).all()
+
+
+# ---------------------------------------------------------------------------
+# SMAClite unit_collisions (tests/test_envs_smaclite.py:530-575), held
+# against the JAX env at ATOL
+# ---------------------------------------------------------------------------
+
+COLLISION_CASES = {
+    # two live allies 0.2 apart are pushed apart (the JAX test's scenario)
+    "overlap_pushout": dict(ally_pos=[[16.0, 16.0], [16.2, 16.0]],
+                            enemy_pos=[[30.0, 2.0], [30.0, 4.0]], actions=[1, 1]),
+    # an overlapping corpse neither pushes nor gets pushed
+    "dead_unit": dict(ally_pos=[[16.0, 16.0], [16.1, 16.0]],
+                      enemy_pos=[[30.0, 2.0], [30.0, 4.0]], actions=[1, 0], dead_ally=1),
+    # a clump of allies and enemies at the map's edge, clipped to it
+    "clump_at_edge": dict(ally_pos=[[0.6, 0.6], [0.9, 0.7], [0.5, 1.0]],
+                          enemy_pos=[[1.2, 0.5], [0.7, 1.3]], actions=[1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COLLISION_CASES))
+def test_unit_collisions_match_jax(case):
+    from cleanmarl_tpu.envs.smaclite import MicroCombat as JMC
+    from cleanmarl_tpu_torch.envs.smaclite import UNIT_RADIUS, MicroCombat
+
+    c = COLLISION_CASES[case]
+    A, E = len(c["ally_pos"]), len(c["enemy_pos"])
+    jenv = JMC(A, E, time_limit=50, unit_collisions=True)
+    tenv = MicroCombat(A, E, time_limit=50, unit_collisions=True, device="cpu")
+    js, _ = jenv.reset(jax.random.PRNGKey(0))
+    js = js.replace(ally_pos=jax.numpy.asarray(c["ally_pos"]),
+                    enemy_pos=jax.numpy.asarray(c["enemy_pos"]))
+    if "dead_ally" in c:
+        js = js.replace(ally_hp=js.ally_hp.at[c["dead_ally"]].set(0.0))
+    actions = np.asarray(c["actions"], np.int32)
+    js2, jts = jenv.step(js, actions, jax.random.PRNGKey(1))
+    s2, ts = tenv.step(state_from_numpy(SmacState, _np_state(js), "cpu", batched=False),
+                       torch.as_tensor(actions)[None])
+    for k in ("ally_pos", "enemy_pos"):
+        np.testing.assert_allclose(getattr(s2, k)[0].numpy(), np.asarray(getattr(js2, k)),
+                                   atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(ts.obs[0].numpy(), np.asarray(jts.obs), atol=ATOL)
+    np.testing.assert_allclose(ts.state[0].numpy(), np.asarray(jts.state), atol=ATOL)
+    if case == "overlap_pushout":
+        gap = float(torch.linalg.norm(s2.ally_pos[0, 0] - s2.ally_pos[0, 1]))
+        assert 0.2 < gap <= 2.0 * UNIT_RADIUS + 1e-5
+    if case == "dead_unit":
+        np.testing.assert_allclose(s2.ally_pos[0].numpy(), c["ally_pos"])
+
+
+def test_unit_collisions_batched_rollout_matches_jax():
+    """Six 3m envs with collisions on, stepped 20 times with random
+    available actions from spawns squeezed together: one batched torch
+    step per step against the JAX step per env, obs, state, reward and
+    positions at ATOL."""
+    N = 6
+    jenv = jreg.make("smaclite", "3m", unit_collisions=True)
+    tenv = treg.make("smaclite", "3m", unit_collisions=True, device="cpu")
+    jstep = jax.jit(jenv.step)
+    rng = np.random.RandomState(3)
+    states = []
+    for i in range(N):
+        s, ts = jax.jit(jenv.reset)(jax.random.PRNGKey(i))
+        # squeeze the teams together so units overlap from the first step
+        s = s.replace(ally_pos=16.0 + 0.3 * (s.ally_pos - s.ally_pos.mean(0)),
+                      enemy_pos=16.5 + 0.3 * (s.enemy_pos - s.enemy_pos.mean(0)))
+        states.append((s, jenv._avail(s)))
+    tstate = state_from_numpy(SmacState, {k: np.stack([np.asarray(getattr(s, k))
+                                                       for s, _ in states])
+                                          for k in _np_state(states[0][0])}, "cpu")
+    for step in range(20):
+        actions = np.stack([_random_actions(rng, np.asarray(av)) for _, av in states])
+        tstate, ts = tenv.step(tstate, torch.as_tensor(actions))
+        out = [jstep(s, actions[i], jax.random.PRNGKey(0)) for i, (s, _) in enumerate(states)]
+        for i, (js, jts) in enumerate(out):
+            where = f"env {i} step {step}"
+            for k in ("ally_pos", "enemy_pos"):
+                np.testing.assert_allclose(getattr(tstate, k)[i].numpy(),
+                                           np.asarray(getattr(js, k)), atol=ATOL,
+                                           err_msg=where + " " + k)
+            np.testing.assert_allclose(ts.obs[i].numpy(), np.asarray(jts.obs), atol=ATOL,
+                                       err_msg=where)
+            np.testing.assert_allclose(float(ts.reward[i]), float(jts.reward), atol=ATOL)
+        states = [(js, jts.avail) for js, jts in out]

@@ -174,7 +174,7 @@ def test_update_matches_jax(case):
     kw = dict(UPDATE_CASES[case], env_type=ENV[0], env_name=ENV[1], actor_hidden_dim=H,
               critic_hidden_dim=H, hyper_dim=H, embed_dim=8, learning_rate_actor=3e-3,
               learning_rate_critic=3e-3)
-    env = treg.make(*ENV, agent_ids=True)
+    env = treg.make(*ENV, agent_ids=True, device="cpu")
     jcfg = jfacmac.FACMACConfig(**kw)
     state = start(jcfg, env, seed=len(case))
     rng = np.random.RandomState(len(case))

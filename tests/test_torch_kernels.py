@@ -348,11 +348,17 @@ CENTRAL = ("r", "e", "v", "b")
     ((21, 50, 3), 0.1, ("r", "e")),          # one step over a 20-step chunk
     ((257, 1000, 3), 0.02, CENTRAL),         # T over three chunks in flight
     ((257, 130), 0.05, ()), ((60, 1000, 3), 0.05, ("r", "e")),
-    ((150, 64, 3), 0.03, ("r", "e"))])       # COMA on 3m: team reward and flag, R = (3, 1)
+    ((150, 64, 3), 0.03, ("r", "e")),        # COMA on 3m: team reward and flag, R = (3, 1)
+    ((100, 64, 8), 0.01, ("r", "e")),        # IPPO on pursuit: R = (8, 1)
+    ((150, 64, 2), 0.03, ("r", "e")),        # IPPO on LBF: R = (2, 1)
+    ((150, 64, 2), 0.03, ("e",))])           # COMA on LBF, per-agent rewards: R = 1
 def test_returns_kernel_matches_plain_on_card(shape, p_end, per_env):
     """The kernel against the plain loop at R = 1 and 3, a ragged B, T = 1,
-    T = 60, T over several chunks and COMA's update (T=150, 64 envs x 3
-    agents); each call counts one launch."""
+    T = 60, T over several chunks, COMA's update (T=150, 64 envs x 3
+    agents), IPPO's on pursuit (T=100, 64 envs x 8 agents) and on LBF
+    (T=150, 64 x 2) and COMA's with per-agent LBF rewards (only the flag
+    broadcast, so both are read materialised); each call counts one
+    launch."""
     _card()
     r, e, v, b = _returns_inputs(shape, p_end, seed=1, device="cuda", per_env=per_env)
     n0 = returns_kernel.LAUNCHES["lambda_returns"]
@@ -380,7 +386,7 @@ def test_returns_kernel_is_bitwise_deterministic_on_card(shape, per_env):
                                    (4, 40, 512), (60, 3077, 128),
                                    (7, 33, 32), (6, 50, 64), (5, 45, 96),
                                    (5, 20, 100), (150, 96, 64), (2, 96, 64),
-                                   (25, 64, 64), (150, 192, 64)])
+                                   (25, 64, 64), (150, 192, 64), (150, 128, 64)])
 def test_gru_kernels_match_plain_on_card(T, M, H):
     """Each kernel against its plain version, at the test shapes, the main
     path's (T=60, M=3072, H=128), a ragged one that cuts the row tiles and
@@ -388,7 +394,8 @@ def test_gru_kernels_match_plain_on_card(T, M, H):
     the L2 routes (8, 16, 100, 256, 512), the recurrent-Q update's (32
     episodes x 3 agents at H=64: whole episodes of T=150, chunks after
     burn-in of T=2), recurrent MADDPG's (32 speaker-listener episodes x 2
-    agents, T=25) and recurrent COMA's (a 3m rollout of 64 envs x 3
+    agents, T=25), recurrent COMA's (a 3m rollout of 64 envs x 3
+    agents, T=150) and recurrent IPPO's and COMA's on LBF (64 envs x 2
     agents, T=150); each recurrence goes through the route of its width."""
     _card()
     wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=H, device="cuda")
@@ -462,22 +469,19 @@ def test_rnn_seq_eval_next_kernel_route_matches_scan_on_card(T):
     torch.testing.assert_close(got, want, atol=VAL_TOL, rtol=0)
 
 
-@pytest.mark.cuda
-def test_rnn_seq_apply_with_resets_kernel_route_matches_scan_on_card():
-    """Recurrent COMA's actor recompute at its update's shape (T=150, 64
-    envs x 3 agents, obs 33, H=64, 9 actions) from a non-zero carry with
-    resets at per-env episode ends (reset_seq (T, B)): the kernel route
-    (one K2, then K3 and dw) against the scan, values at 1e-5 and every
-    gradient at 2e-4 of its largest entry."""
-    _card()
+def _rnn_seq_apply_kernel_vs_scan(T, B, n, n_obs, n_actions, p_end, seed):
+    """The kernel route of ``rnn_seq_apply`` at H=64 (one K2, then K3 and
+    dw) against the scan, from a non-zero carry with resets at per-env
+    episode ends: values at 1e-5, every gradient at 2e-4 of its largest
+    entry."""
     from cleanmarl_tpu_torch.core import networks as nets
     from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
 
-    g = torch.Generator("cuda").manual_seed(5)
-    params = nets.rnn_init(g, 33, 64, 9, final_gain=0.01, device="cuda")
-    obs = torch.randn(150, 64, 3, 33, generator=g, device="cuda")
-    h0 = 0.5 * torch.randn(64, 3, 64, generator=g, device="cuda")
-    ended = torch.rand(150, 64, generator=g, device="cuda") < 0.03
+    g = torch.Generator("cuda").manual_seed(seed)
+    params = nets.rnn_init(g, n_obs, 64, n_actions, final_gain=0.01, device="cuda")
+    obs = torch.randn(T, B, n, n_obs, generator=g, device="cuda")
+    h0 = 0.5 * torch.randn(B, n, 64, generator=g, device="cuda")
+    ended = torch.rand(T, B, generator=g, device="cuda") < p_end
 
     def run(impl):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -493,3 +497,19 @@ def test_rnn_seq_apply_with_resets_kernel_route_matches_scan_on_card():
     torch.testing.assert_close(out_k, out_s, atol=VAL_TOL, rtol=0)
     for a, b in zip(grads_k, grads_s):
         torch.testing.assert_close(a, b, atol=GRAD_TOL * max(1.0, float(b.abs().max())), rtol=0)
+
+
+@pytest.mark.cuda
+def test_rnn_seq_apply_with_resets_kernel_route_matches_scan_on_card():
+    """Recurrent COMA's actor recompute at its update's shape on 3m (T=150,
+    64 envs x 3 agents, obs 33, 9 actions)."""
+    _card()
+    _rnn_seq_apply_kernel_vs_scan(150, 64, 3, 33, 9, 0.03, seed=5)
+
+
+@pytest.mark.cuda
+def test_rnn_seq_apply_at_lbf_shape_kernel_route_matches_scan_on_card():
+    """Recurrent IPPO's and COMA's actor recompute on LBF 8x8-2p-3f (T=150,
+    64 envs x 2 agents, obs 15 + 2 agent ids, 6 actions: M=128)."""
+    _card()
+    _rnn_seq_apply_kernel_vs_scan(150, 64, 2, 17, 6, 0.02, seed=6)

@@ -240,7 +240,7 @@ def test_update_matches_jax(case, monkeypatch):
     env_id, dead = kw.pop("env", ENV), kw.pop("dead", 0.0)
     kw.update(env_type=env_id[0], env_name=env_id[1], actor_hidden_dim=H, critic_hidden_dim=H,
               learning_rate_actor=3e-3, learning_rate_critic=3e-3, gumbel_tau=0.8)
-    env = treg.make(*env_id, agent_ids=True)
+    env = treg.make(*env_id, agent_ids=True, device="cpu")
     T = env.episode_limit
     jcfg = jmaddpg.MADDPGConfig(**kw)
     state = start(jcfg, env, seed=len(case))

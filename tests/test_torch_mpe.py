@@ -40,7 +40,7 @@ def _jax_reset(jenv, seed):
 
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_transcript_matches_jax(name):
-    jenv, tenv = jmpe.make(name), tmpe.make(name)
+    jenv, tenv = jmpe.make(name), tmpe.make(name, device="cpu")
     assert (tenv.n_agents, tenv.obs_dim, tenv.state_dim, tenv.n_actions,
             tenv.episode_limit) == (jenv.n_agents, jenv.obs_dim, jenv.state_dim,
                                     jenv.n_actions, jenv.episode_limit)
@@ -112,7 +112,7 @@ def test_action_force_and_collision_forces_match_jax():
 def test_action_decoding_matches_jax(name, n_act):
     """Every action of agent 0 (with a cycling action of agent 1), from one
     reset state: the utterance and the motion it decodes to."""
-    jenv, tenv = jmpe.make(name), tmpe.make(name)
+    jenv, tenv = jmpe.make(name), tmpe.make(name, device="cpu")
     fields, _ = _jax_reset(jenv, seed=7)
     fields = {k: np.repeat(v[:1], n_act, axis=0) for k, v in fields.items()}
     actions = np.stack([np.arange(n_act), (3 * np.arange(n_act)) % n_act], -1)
@@ -137,7 +137,7 @@ def test_action_decoding_matches_jax(name, n_act):
     ("simple_spread_v3", 0.9, (4096,)), ("simple_speaker_listener_v4", 0.9, (4096,)),
     ("simple_reference_v3", 1.0, (4096, 2))])
 def test_reset_ranges(name, lm_bound, goal_shape):
-    env = tmpe.make(name)
+    env = tmpe.make(name, device="cpu")
     s, ts = env.reset(4096, torch.Generator().manual_seed(0))
     assert s.agent_pos.abs().max() <= 1.0 and s.agent_pos.abs().max() > 0.99
     assert s.landmark_pos.abs().max() <= lm_bound
@@ -157,4 +157,5 @@ def test_registry_routes_mpe():
         assert (tenv.obs_dim, tenv.state_dim, tenv.n_actions) == (
             jenv.obs_dim, jenv.state_dim, jenv.n_actions) == (21, 54, 5)
         assert isinstance(tenv.env, tmpe.SimpleSpread)
-    assert isinstance(treg.make("mpe", "simple_reference_v3"), tmpe.SimpleReference)
+    assert isinstance(treg.make("mpe", "simple_reference_v3", device="cpu"),
+                      tmpe.SimpleReference)

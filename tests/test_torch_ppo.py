@@ -77,7 +77,7 @@ def test_ppo_update_matches_jax(case):
     rng = np.random.RandomState(len(case))
     runner_j = jinit(jax.random.PRNGKey(0))
     n = runner_j.obs.shape[1]
-    tenv = registry.make("smaclite", "3m", agent_ids=True)
+    tenv = registry.make("smaclite", "3m", agent_ids=True, device="cpu")
     traj = _trajectory(tenv, rng, dead_frac=0.2)
     boot_obs = rng.randn(N, n, tenv.obs_dim).astype(np.float32)
     boot_state = rng.randn(N, tenv.state_dim).astype(np.float32)

@@ -276,7 +276,7 @@ def to_torch_batch(batch):
 def test_update_matches_jax(case):
     kw = dict(env_type="mpe", env_name="simple_spread_v3", hidden_dim=H, hyper_dim=H,
               embed_dim=8, learning_rate=3e-3, **UPDATE_CASES[case])
-    env = treg.make("mpe", "simple_spread_v3", agent_ids=True)
+    env = treg.make("mpe", "simple_spread_v3", agent_ids=True, device="cpu")
     jcfg = jqmix.QMIXConfig(**kw)
 
     @jax.jit

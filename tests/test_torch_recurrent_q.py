@@ -203,7 +203,7 @@ def start(jcfg, env, seed):
 def run_update_pair(kw, seq, seed):
     """Two JAX updates (the first fills the Adam state) and the port's
     second update from the JAX state after the first → (port, JAX)."""
-    env = treg.make("smaclite", "3m", agent_ids=True)
+    env = treg.make("smaclite", "3m", agent_ids=True, device="cpu")
     base = dict(env_type="smaclite", env_name="3m", hidden_dim=H, hyper_dim=H,
                 embed_dim=8, learning_rate=3e-3, seq_length=L, **kw)
     jcfg = jrq.RecurrentQConfig(**{k: v for k, v in base.items() if k != "gru_impl"},
@@ -267,7 +267,7 @@ def test_kernel_route_gets_contiguous_inputs(monkeypatch):
         seen.append(all(x.is_contiguous() for x in (wh, bh, h0, gi, keep)))
         return real(wh, bh, h0, gi, keep)
     monkeypatch.setattr(gru_kernel, "gru_seq", spy)
-    env = treg.make("smaclite", "3m", agent_ids=True)
+    env = treg.make("smaclite", "3m", agent_ids=True, device="cpu")
     cfg = recurrent_q.RecurrentQConfig(env_type="smaclite", env_name="3m", mixing="qmix",
                                        hidden_dim=H, hyper_dim=H, embed_dim=8,
                                        gru_impl="kernel", device="cpu")

@@ -121,7 +121,7 @@ def test_update_matches_jax(case):
               learning_rate=3e-3, batch_size=4, num_envs=8)
     kw.update(dict(clip_gradients=2.0) if case == "clip" else
               dict(clip_gradients=-1.0, normalize_reward=True))
-    env = treg.make("mpe", "simple_spread_v3", agent_ids=True)
+    env = treg.make("mpe", "simple_spread_v3", agent_ids=True, device="cpu")
     jcfg = jvdn.VDNConfig(**kw)
 
     @jax.jit
