@@ -84,7 +84,26 @@ Phases, each of which must pass:
    here behind ``HostEnvFamily``: its live and pre-reset views against the
    host env's own arrays, one IPPO block and one QMIX episode-ring block on
    it); SMAClite 3m with ``unit_collisions``, one step on the card against
-   the CPU and one MAPPO block at the bench widths.
+   the CPU and one MAPPO block at the bench widths;
+9. checkpoint and resume, data parallelism and the new CLI options
+   (``core/checkpoint.py``, ``distributed/``; phase 2 also holds and
+   times K1 at one rank's shape, T=60 over 4096 envs x 3 agents, and
+   K2/K3/dw at one rank's rows of a minibatch, T=60, M=1536, H=128, with
+   per-env resets): recurrent MAPPO at the
+   main path's widths trains one block, saves, restores into an init of
+   another seed, and one more block from both must give the same bits in
+   every param, optimizer moment, env state, generator state and counter
+   (the checkpoint's size, save and restore times printed); two gloo
+   ranks on the one card, 4096 envs each, hold one Adam step over a
+   fixed trajectory (split by the interleave) against the
+   single-process step on the scan and the kernel route (params and
+   metrics to ``PPO_TOL``, gradients to ``DP_GRAD_TOL``) and the main
+   path's 64-step update's metrics, then drive three blocks each: params
+   bitwise identical across ranks, K1, K2, K3 and dw launched on every
+   rank (``mappo_dp`` in ``launches_by_path``), global env-steps/s and
+   the all-reduce's ms per update; a 2-process MAPPO CLI cluster saves
+   and a resumed one prints ``resumed from step N`` on rank 0 only and
+   ends at its total; a ``--profile_dir`` run leaves a trace.
 
 The line before last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -97,6 +116,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2092,6 +2112,408 @@ def check_collisions(counters):
     return dict(max_abs_err=err, moved=moved, block_s=wall, launches=launches, metrics=metrics)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: checkpoint and resume, data-parallel MAPPO over 2 ranks, the CLIs
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2                 # ranks on the one card (gloo)
+# a resumed runner must equal the one it was saved from, bit for bit; a
+# tensor that differs is named and held to PPO_TOL (a non-deterministic op)
+RESUME_TOL = PPO_TOL
+# the 2-rank gradient against the single-process one, per leaf, relative to
+# its largest entry (float32 sums over 24,576 rows in another order)
+DP_GRAD_TOL = 1e-4
+# 2-process CLIs: one rollout of 16 envs a block (2,400 env steps), a save
+# every block; the resumed cluster runs two blocks more
+DP_CLI = ["--recurrent", "true", "--env_type", "smaclite", "--env_name", "3m",
+          "--device", "cuda", "--num_envs", "16", "--log_interval", "1",
+          "--eval_steps", "1000000", "--seed", "0", "--verbose", "true"]
+DP_CLI_STEPS = (4800, 9600)
+
+
+def check_paths9_shapes(results):
+    """K1, K2, K3 and dw at the shapes one rank of ``mappo_dp`` gives them:
+    K1 over the rank's 4096 envs (T=60; reward, flag and value per env,
+    broadcast over the 3 agents, as on the main path), the GRU kernels
+    over the rank's rows of one minibatch (T=60, 512 envs x 3 agents =
+    1536 rows, H=128) with per-env resets at the main path's rate (2% a
+    step, as ``RETURNS_MAIN``) shared by the agents and a carried h0.
+    Held against their plain versions at the usual tolerances and timed.
+    Adds ``mappo_dp_shape`` to K1's row and ``mappo_dp_shapes`` to each
+    tensor-core GRU row."""
+    import torch
+
+    E = BENCH["num_envs"] // DP_WORLD
+    T, H, n = BENCH["rollout_len"], BENCH["actor_hidden_dim"], 3
+    r, e, v, b = _returns_inputs(T, E, n, 0.02, True, True, seed=13)
+    time_k1_at(results, "mappo_dp_shape", r, e, v, b, 0.95, (n, n),
+               f"a rank's shape in mappo_dp ({E} envs)")
+    mb_envs = E // BENCH["num_minibatches"]
+    M = mb_envs * n
+    g = torch.Generator("cuda").manual_seed(14)
+    ended = torch.rand(T, mb_envs, generator=g, device="cuda") < 0.02
+    keep = (1.0 - ended.float())[..., None].expand(T, mb_envs, n).reshape(T, M).contiguous()
+    errs, ins, hs, rec = check_gru_shape(T, M, H, seed=M, keep=keep)
+    add_shape_rows(results, "mappo_dp_shapes", T, M, H, time_gru(T, M, H, ins, hs, rec))
+    keep_max_err(results, errs)
+
+
+def _flat_state(runner):
+    """(path, leaf) of the runner as a checkpoint writes it: CPU tensors,
+    generator states, host numbers."""
+    from cleanmarl_tpu_torch.core.checkpoint import to_state
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            return [y for k in sorted(x) for y in walk(x[k], f"{path}.{k}")]
+        if isinstance(x, list):
+            return [y for i, v in enumerate(x) for y in walk(v, f"{path}[{i}]")]
+        return [(path, x)]
+    return walk(to_state(runner), "runner")
+
+
+def compare_runners(a, b, what):
+    """Generator states and host numbers must be equal; tensors equal, else
+    each that differs is listed and held to RESUME_TOL. → (bitwise, {path:
+    max |diff|} of the tensors that differ)."""
+    import torch
+
+    fa, fb = _flat_state(a), _flat_state(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        fail(f"{what}: the runners' structures differ")
+    differ = {}
+    for (path, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                fail(f"{what}: {path} has another dtype or shape")
+            if not torch.equal(x, y):
+                if "generator" in path:
+                    fail(f"{what}: generator state {path} differs")
+                differ[path] = float((x.double() - y.double()).abs().max())
+                if not torch.allclose(x.double(), y.double(), **RESUME_TOL):
+                    fail(f"{what}: {path} differs by {differ[path]:.3e} (> {RESUME_TOL})")
+        elif type(x) is not type(y) or x != y:
+            fail(f"{what}: {path} is {x!r} against {y!r}")
+    return not differ, differ
+
+
+def check_resume():
+    """Recurrent MAPPO on 3m at the main path's widths: one block, a save, a
+    restore into an init of another seed, then one more block from both."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cleanmarl_tpu_torch.algos.mappo import make_train
+    from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
+    from cleanmarl_tpu_torch.core.checkpoint import Checkpointer
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    init, train_block, _, _ = make_train(PPOConfig(**BENCH, device="cuda"))
+    runner, _ = train_block(init(torch.Generator("cuda").manual_seed(0)))
+    work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
+    try:
+        ckpt = Checkpointer(work)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(runner.step, runner, wait=True)
+        save_s = time.perf_counter() - t0
+        step_dir = os.path.join(work, str(runner.step))
+        size = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        template = init(torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    same, differ = compare_runners(restored, runner, "restored runner")
+    if not same:
+        fail(f"the restored runner differs from the saved one: {differ}")
+    a, ma = train_block(runner)
+    b, mb = train_block(restored)
+    ma, mb = to_host(ma), to_host(mb)
+    bitwise, differ = compare_runners(b, a, "resumed block")
+    if bitwise and ma != mb:
+        fail(f"resumed block's metrics differ: {ma} vs {mb}")
+    state = ("bitwise identical" if bitwise else
+             f"within {RESUME_TOL}, not bitwise at {differ}")
+    log(f"[resume] checkpoint of {BENCH['num_envs']} envs at step {runner.step}: "
+        f"{size / 2**20:.2f} MiB, save {save_s:.3f} s, restore {restore_s:.3f} s; resumed "
+        f"block ends at step {b.step} (uninterrupted {a.step}); params, optimizer moments, "
+        f"env state, generators and counters {state}")
+    return dict(size_mib=size / 2**20, save_s=save_s, restore_s=restore_s,
+                step=runner.step, resumed_step=b.step, bitwise=bitwise, differ=differ)
+
+
+def _dp_rank(rank, world, port, out):
+    """One rank of phase 9's data-parallel MAPPO; sends (rank, status,
+    result) to the parent."""
+    import traceback
+
+    try:
+        out.put((rank, "ok", _dp_rank_body(rank, world, port)))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _dp_rank_body(rank, world, port):
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+    from cleanmarl_tpu_torch.algos.mappo import make_train
+    from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS, dp, multihost
+    from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PPOConfig(**BENCH, device="cuda")
+    one_step = dataclasses.replace(cfg, epochs=1, num_minibatches=1)
+    variants = {"one_step_scan": dataclasses.replace(one_step, gru_impl="scan"),
+                "one_step_kernel": one_step, "bench_kernel": cfg}
+    # the single-process updates on a fixed trajectory, before the group
+    # exists (make_train steps all 8192 envs); every rank draws the same one
+    full = {name: make_train(c)[3] for name, c in variants.items()}
+    init_f = make_train(cfg)[0]
+    r1, traj, h0 = full["bench_kernel"]["collect_rollout"](
+        init_f(torch.Generator("cuda").manual_seed(0)))
+    ref = {}
+    if rank == 0:
+        ref = {name: meta_f["ppo_update"](r1, traj, h0) for name, meta_f in full.items()}
+    del full, init_f
+    multihost.maybe_initialize(dataclasses.replace(
+        cfg, coordinator_address=f"localhost:{port}", num_processes=world, process_id=rank))
+    local = dp.shard_runner(r1, DATA_FIELD_DIMS["PPO"], rank, world)
+    traj_l = {k: v[:, rank::world].contiguous() for k, v in traj.items()}
+    h0_l = h0[rank::world].contiguous()
+    res = dict(rank=rank, update={})
+
+    def params(r):
+        return tree_leaves(r.actor_params) + tree_leaves(r.critic_params)
+
+    def grads(r):
+        """The gradient of a single Adam step from zero moments: mu / (1 - b1)."""
+        return [m / 0.1 for m in tree_leaves(r.actor_opt["mu"])
+                + tree_leaves(r.critic_opt["mu"])]
+    for name, c in variants.items():
+        init, train_block, _, meta = make_train(c)
+        out, m = meta["ppo_update"](local, traj_l, h0_l)
+        res.update(local_envs=meta["local_envs"], device=str(params(out)[0].device))
+        if rank == 0:
+            want, m_ref = ref[name]
+            got_p, want_p = params(out), params(want)
+            errs = [float((a - b).abs().max()) for a, b in zip(got_p, want_p)]
+            res["update"][name] = dict(
+                params_err=max(errs), params_err_leaf=errs.index(max(errs)),
+                params_outside=sum(int((~torch.isclose(a, b, **PPO_TOL)).sum())
+                                   for a, b in zip(got_p, want_p)),
+                params_total=sum(a.numel() for a in got_p),
+                grads_rel_err=max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                                  for a, b in zip(grads(out), grads(want))),
+                metrics_err=max(abs(float(m[k]) - float(m_ref[k])) for k in m_ref),
+                metrics_close=all(torch.allclose(m[k], m_ref[k], **PPO_TOL) for k in m_ref))
+    del ref, r1, traj, h0, traj_l, h0_l, local, out
+    # the driven blocks below take the kernel route (the last make_train)
+
+    def identical(runner):
+        """Every rank's params bitwise equal to rank 0's (one broadcast)."""
+        flat = torch.cat([x.reshape(-1) for x in
+                          tree_leaves(runner.actor_params) + tree_leaves(runner.critic_params)])
+        ref0 = flat.clone()
+        dist.broadcast(ref0, src=0)
+        bad = torch.tensor([0.0 if torch.equal(flat, ref0) else 1.0], device=flat.device)
+        dist.all_reduce(bad)
+        return float(bad) == 0.0
+
+    runner = dp.global_runner_init(init, torch.Generator("cuda").manual_seed(
+        dp.rank_seed(cfg.seed, rank)), DATA_FIELD_DIMS["PPO"])
+    counters = (returns_kernel.LAUNCHES, gru_kernel.LAUNCHES)
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    walls = []
+    comm = dp.COMM
+    for timed in (False, False, True):
+        if timed:
+            comm.reset(timed=True)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        runner, metrics = train_block(runner)
+        metrics = to_host(metrics)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            res["launches"] = {k: v for table in counters for k, v in table.items()}
+    res.update(block_walls=walls, metrics=metrics, step=runner.step,
+               params_identical=identical(runner), comm_calls=comm.calls,
+               comm_elements=comm.elements, comm_s=comm.seconds,
+               updates_per_block=cfg.log_interval,
+               finite=all(math.isfinite(v) for v in metrics.values()))
+    return res
+
+
+def check_data_parallel():
+    """Two ranks of MAPPO on the one card (gloo), 8192 envs in all: one
+    update on a fixed trajectory split by the interleave against the
+    single-process update. Held: one Adam step over all envs (epochs = 1,
+    one minibatch) on the scan and the kernel route, params and metrics to
+    PPO_TOL and the gradient (Adam's first moment over 1 - b1) to
+    DP_GRAD_TOL of each leaf's largest; the main path's own update (8
+    epochs x 8 minibatches) has its metrics held and its params' difference
+    reported, since over 64 Adam steps an element whose gradient is near
+    Adam's eps (1e-8) moves by the sign of its float32 summation noise,
+    which the split changes. Then three driven blocks per rank (the first
+    counts the kernels' launches, the second gives env-steps/s, the third
+    times each collective between two synchronizes)."""
+    import multiprocessing
+
+    from cleanmarl_tpu_torch.distributed import multihost
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = multihost.free_port()
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, port, out))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(DP_WORLD):
+            rank, status, value = out.get(timeout=600)
+            if status != "ok":
+                fail(f"data-parallel rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"a data-parallel rank exited with {[p.exitcode for p in procs]}")
+    r0 = results[0]
+    for name in ("one_step_scan", "one_step_kernel"):
+        u = r0["update"][name]
+        if u["params_outside"] or not u["metrics_close"] or u["grads_rel_err"] > DP_GRAD_TOL:
+            fail(f"the 2-rank update ({name}) disagrees with the single-process one: {u}")
+    bench = r0["update"]["bench_kernel"]
+    if not bench["metrics_close"]:
+        fail(f"the 2-rank update's metrics (bench_kernel) disagree with the single-process "
+             f"one: {bench}")
+    for r in results.values():
+        if not r["params_identical"]:
+            fail(f"params differ across ranks after the driven blocks (rank {r['rank']})")
+        if not r["finite"]:
+            fail(f"non-finite metrics on rank {r['rank']}: {r['metrics']}")
+        for k in KERNEL_KEYS:
+            if r["launches"].get(k, 0) <= 0:
+                fail(f"kernel {k} was not launched on rank {r['rank']}: {r['launches']}")
+    steps = BENCH["num_envs"] * BENCH["rollout_len"] * BENCH["log_interval"]
+    block_s = max(r["block_walls"][1] for r in results.values())
+    ar_ms = r0["comm_s"] / r0["updates_per_block"] * 1e3
+    log(f"[dp] {DP_WORLD} ranks on one card (gloo), {r0['local_envs']} envs each, one update "
+        f"on a fixed trajectory against the single-process one (params and metrics max "
+        f"|diff|, gradients relative to each leaf's largest):")
+    for name, u in r0["update"].items():
+        held = ("held to PPO_TOL, gradients to DP_GRAD_TOL" if name.startswith("one_step")
+                else "metrics held, params reported")
+        log(f"[dp]   {name}: params {u['params_err']:.3e} ({u['params_outside']} of "
+            f"{u['params_total']} outside PPO_TOL), gradients {u['grads_rel_err']:.3e}, "
+            f"metrics {u['metrics_err']:.3e}; {held}")
+    log("[dp] params bitwise identical across ranks after 3 driven blocks (kernel route)")
+    walls = [[round(w, 3) for w in results[k]["block_walls"]] for k in sorted(results)]
+    log(f"[dp] block walls (s) by rank {walls}"
+        f"; global env-steps/s {steps / block_s:.1f} (block 2); all-reduce {ar_ms:.3f} ms per "
+        f"update ({r0['comm_calls']} collectives, {r0['comm_elements']} floats in block 3, "
+        f"each between synchronizes); spawn to results {time.perf_counter() - t0:.1f} s")
+    for rank in sorted(results):
+        r = results[rank]
+        log(f"[dp] rank {rank} on {r['device']}: launches in block 1 {r['launches']}")
+    return dict(ranks=results, env_steps_per_s=steps / block_s, allreduce_ms_per_update=ar_ms,
+                launches=r0["launches"])
+
+
+def run_procs(cmds, timeout=600):
+    """Start every MAPPO CLI command at once from the repo root → their
+    outputs; fails if any exits non-zero."""
+    procs = [subprocess.Popen([sys.executable, "-m", "cleanmarl_tpu_torch.algos.mappo"] + c,
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            fail(f"CLI exited {p.returncode}:\n{o[-3000:]}")
+    return outs
+
+
+def check_dp_cli():
+    """A 2-process MAPPO CLI cluster that saves, a resumed cluster that ends
+    at its total, and (beside the first) a ``--profile_dir`` run."""
+    import shutil
+    import tempfile
+
+    from cleanmarl_tpu_torch.distributed import multihost
+
+    work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
+    ckpt, prof = os.path.join(work, "ckpt"), os.path.join(work, "prof")
+
+    def cluster(total, resume):
+        port = multihost.free_port()
+        return [DP_CLI + ["--total_timesteps", str(total), "--checkpoint_dir", ckpt,
+                          "--checkpoint_every", "2400", "--resume", str(resume).lower(),
+                          "--coordinator_address", f"localhost:{port}",
+                          "--num_processes", str(DP_WORLD), "--process_id", str(i)]
+                for i in range(DP_WORLD)]
+    try:
+        t0 = time.perf_counter()
+        outs = run_procs(cluster(DP_CLI_STEPS[0], False) + [
+            DP_CLI + ["--total_timesteps", "7200", "--profile_dir", prof]])
+        t1 = time.perf_counter()
+        if "[dist] 2 ranks, backend gloo" not in outs[0] or "[MAPPO]" in outs[1]:
+            fail(f"2-process CLI: rank 0 must print alone:\n{outs[0][-1500:]}\n{outs[1][-1500:]}")
+        saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+        if saved[-1:] != [DP_CLI_STEPS[0]]:
+            fail(f"2-process CLI saved steps {saved}")
+        traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+        trace_mib = sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 2**20
+        if not traces or "[MAPPO] phases:" not in outs[2]:
+            fail(f"--profile_dir left no trace or printed no phases:\n{outs[2][-2000:]}")
+        outs2 = run_procs(cluster(DP_CLI_STEPS[1], True))
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = f"[MAPPO] resumed from step {DP_CLI_STEPS[0]}"
+    if want not in outs2[0] or "resumed" in outs2[1]:
+        fail(f"resumed cluster: {want!r} must print on rank 0 only:\n{outs2[0][-1500:]}")
+    steps = [int(x) for x in re.findall(r"\[MAPPO\] step=(\d+)", outs2[0])]
+    if not steps or steps[0] <= DP_CLI_STEPS[0] or steps[-1] != DP_CLI_STEPS[1]:
+        fail(f"resumed cluster's steps {steps}, expected ({DP_CLI_STEPS[0]}, "
+             f"{DP_CLI_STEPS[1]}]")
+    dist_line = next(x for x in outs[0].splitlines() if x.startswith("[dist]"))
+    for line in [dist_line, want] + outs2[0].strip().splitlines()[-2:]:
+        log(f"[dp-cli] {line}")
+    log(f"[dp-cli] saved {saved}; resumed cluster steps {steps}; profile trace "
+        f"{len(traces)} file(s), {trace_mib:.1f} MiB; first cluster + profile run "
+        f"{t1 - t0:.1f} s, resumed cluster {t2 - t1:.1f} s")
+    return dict(saved=saved, resumed_steps=steps, trace_files=len(traces),
+                trace_mib=trace_mib, walls=[t1 - t0, t2 - t1])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write all results to this JSON file")
@@ -2136,6 +2558,7 @@ def main():
     rq_routes = check_recurrent_q_shapes(results)
     check_paths7_shapes(results)
     check_paths8_shapes(results)
+    check_paths9_shapes(results)
 
     # phase 3: the main path
     check_update_against_cpu()
@@ -2190,10 +2613,20 @@ def main():
     collisions = check_collisions(counters)
     log(f"[paths8] collisions in {lap_s()}; phase 8 in {time.perf_counter() - t8:.1f} s")
 
+    # phase 9: checkpoint and resume, data-parallel MAPPO, the CLIs
+    t9 = lap = time.perf_counter()
+    resume = check_resume()
+    log(f"[resume] in {lap_s()}")
+    data_parallel = check_data_parallel()
+    log(f"[dp] in {lap_s()}")
+    dp_cli = check_dp_cli()
+    log(f"[dp-cli] in {lap_s()}; phase 9 in {time.perf_counter() - t9:.1f} s")
+
     by_path = {"mappo": main_path["launches"],
                **{k: v["launches"] for k, v in {**recq, **paths7, **paths8}.items()},
                "host_ippo": dict(dict.fromkeys(KERNEL_KEYS, 0), **host_route["launches"]),
-               "mappo_3m_collisions": collisions["launches"]}
+               "mappo_3m_collisions": collisions["launches"],
+               "mappo_dp": data_parallel["launches"]}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
                     launches_by_path={p: c.get(name, 0) for p, c in by_path.items()}, **r)
                for name, r in results.items()]
@@ -2204,7 +2637,8 @@ def main():
                            mma_tf32_tflops=mma_tflops, offpolicy=offpolicy,
                            recurrent_q_routes=rq_routes, recurrent_q=recq, paths7=paths7,
                            env_steps=env_steps, paths8=paths8, host_route=host_route,
-                           collisions=collisions),
+                           collisions=collisions, resume=resume,
+                           data_parallel=data_parallel, dp_cli=dp_cli),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

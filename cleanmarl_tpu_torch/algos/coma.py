@@ -27,6 +27,13 @@ update. With ``bootstrap_truncation`` the train loop draws the sampled
 action of the truncation bootstrap and passes it to
 ``meta["update"]``, which only computes.
 
+In a process group (``distributed/dp.py``) each rank steps ``num_envs /
+world`` envs (the global envs ``rank, rank + world, ...``); reward,
+return and advantage normalization use every rank's statistics, each
+loss is the rank's sum over the global count, and the critic's gradients
+(every ``critic_epochs`` step) and the actor's are summed over the ranks
+before Adam. With one rank nothing is reduced.
+
     python -m cleanmarl_tpu_torch.algos.coma --env_type smaclite \
         --env_name 3m --num_envs 64                    # on the card
     ... --device cpu                                   # on the CPU
@@ -48,6 +55,7 @@ from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.base import categorical
 from cleanmarl_tpu_torch.envs.external import as_vec
@@ -95,15 +103,15 @@ class COMAConfig:
     log_interval: int = 8
     eval_steps: int = 50_000
     num_eval_ep: int = 10
-    checkpoint_dir: str = ""          # not ported yet (ROADMAP Queue A, A7)
+    checkpoint_dir: str = ""          # saves the whole runner (core/checkpoint.py)
     checkpoint_every: int = 200_000
     resume: bool = False
     use_wnb: bool = False
     wnb_project: str = ""
     wnb_entity: str = ""
-    profile_dir: str = ""             # not ported yet (ROADMAP Queue A, A7)
-    use_mesh: bool = False            # not ported yet (ROADMAP Queue A, A7)
-    coordinator_address: str = ""     # not ported yet (ROADMAP Queue A, A7)
+    profile_dir: str = ""             # torch.profiler trace of block 1
+    use_mesh: bool = False            # one rank per visible card (distributed/)
+    coordinator_address: str = ""     # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -124,7 +132,7 @@ class COMARunnerState:
     avail: torch.Tensor
     actor_h: torch.Tensor        # (num_envs, n_agents, H); zeros when FF
     stats: EpisodeStats
-    step: int                    # env transitions so far (host counter)
+    step: int                    # global env transitions so far (host counter)
     num_updates: int             # a float32 counter in JAX; exact below 2**24
     generator: torch.Generator
 
@@ -202,7 +210,9 @@ def make_train(cfg: COMAConfig, env=None):
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
     check_config(cfg, env)
-    vec = as_vec(env, cfg.num_envs)
+    world = dp.rank_world()[1]
+    N = dp.check_layout(cfg.num_envs, 1, world)     # this rank's envs
+    vec = as_vec(env, N)
     rollout_len = cfg.rollout_len or env.episode_limit
     total_updates = max(cfg.total_timesteps // (rollout_len * cfg.num_envs), 1)
     n_updates = total_updates if cfg.anneal_lr else 0
@@ -262,8 +272,8 @@ def make_train(cfg: COMAConfig, env=None):
             target_critic=tree_map(torch.clone, critic_params),
             actor_opt=actor_opt.init(actor_params), critic_opt=critic_opt.init(critic_params),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
-            actor_h=torch.zeros((cfg.num_envs, n, H), device=device),
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0, num_updates=0,
+            actor_h=torch.zeros((N, n, H), device=device),
+            stats=EpisodeStats.create(N, device), step=0, num_updates=0,
             generator=generator)
 
     @torch.no_grad()
@@ -272,7 +282,7 @@ def make_train(cfg: COMAConfig, env=None):
         h0): the team reward is stored (T, N) and broadcast over the
         agents at the update; h0 is the carry at the rollout's start."""
         gen = runner.generator
-        N, T = cfg.num_envs, rollout_len
+        T = rollout_len
 
         def empty(shape, dtype=torch.float32):
             return torch.empty((T,) + tuple(shape), dtype=dtype, device=device)
@@ -306,7 +316,7 @@ def make_train(cfg: COMAConfig, env=None):
                 traj[k][t] = v
             obs, state, avail = ts2.obs, ts2.state, ts2.avail
         runner = runner.replace(env_state=env_state, obs=obs, state=state, avail=avail,
-                                actor_h=h, stats=stats, step=runner.step + T * N)
+                                actor_h=h, stats=stats, step=runner.step + T * cfg.num_envs)
         return runner, traj, h0
 
     @torch.no_grad()
@@ -350,16 +360,21 @@ def make_train(cfg: COMAConfig, env=None):
                                         cfg.nsteps)
             if cfg.normalize_return:
                 # agent-mean convention, critic targets only
-                ret_am = returns.mean(dim=-1)
-                returns = (returns - ret_am.mean()) / (ret_am.std(unbiased=False) + 1e-8)
+                mu, std = dp.global_mean_std(returns.mean(dim=-1))
+                returns = (returns - mu) / (std + 1e-8)
+
+        def share(x):
+            """This rank's share of the mean over every rank's elements."""
+            return x.mean() if world == 1 else x.sum() / (x.numel() * world)
 
         def critic_loss_fn(p):
             q = critic_q(p, traj["state"], traj["obs"], traj["action"])
-            return torch.mean(torch.square(taken(q, traj["action"]) - returns)), ()
+            return share(torch.square(taken(q, traj["action"]) - returns)), ()
 
         critic_params, c_opt = runner.critic_params, runner.critic_opt
         for _ in range(max(1, cfg.critic_epochs)):
             c_loss, _, c_grads = value_and_grad(critic_loss_fn, critic_params)
+            c_grads, (c_loss,) = dp.all_reduce_sum([c_grads, [c_loss]])
             with torch.no_grad():
                 c_gnorm = nets.global_norm(c_grads)
                 critic_params, c_opt = critic_opt.update(c_grads, c_opt, critic_params)
@@ -376,13 +391,15 @@ def make_train(cfg: COMAConfig, env=None):
             log_pi = torch.log(pi + 1e-8)
             adv = counterfactual_advantage(q_new, pi, traj["action"]).detach()
             if cfg.normalize_advantage:
-                adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+                mu, std = dp.global_mean_std(adv)
+                adv = (adv - mu) / (std + 1e-8)
             entropy = -torch.sum(pi * log_pi, dim=-1) / A    # the reference's mean over A
-            ent = torch.mean(entropy)
-            pg = torch.mean(taken(log_pi, traj["action"]) * adv)
+            ent = share(entropy)
+            pg = share(taken(log_pi, traj["action"]) * adv)
             return -pg - ent_coef * ent, (ent,)
 
         a_loss, (entropy,), a_grads = value_and_grad(actor_loss_fn, runner.actor_params)
+        a_grads, (a_loss, entropy) = dp.all_reduce_sum([a_grads, [a_loss, entropy]])
         with torch.no_grad():
             a_gnorm = nets.global_norm(a_grads)
             actor_params, a_opt = actor_opt.update(a_grads, runner.actor_opt,
@@ -426,13 +443,23 @@ def make_train(cfg: COMAConfig, env=None):
                              init_carry=lambda m: torch.zeros((m, n, H), device=device))
     meta = {"update": update, "collect_rollout": collect_rollout, "rollout_len": rollout_len,
             "steps_per_block": rollout_len * cfg.num_envs * cfg.log_interval,
-            "gru_impl": gru_impl}
+            "gru_impl": gru_impl, "local_envs": N}
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: COMAConfig, env=None, logger=None):
+    """``--use_mesh`` on more than one card spawns one rank per card
+    (``distributed/multihost.py``) and returns (None, rank 0's last eval
+    metrics); the env is then built from the config in every rank."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    ranks = multihost.mesh_ranks(cfg)
+    if ranks > 1:
+        if env is not None or logger is not None:
+            raise ValueError("--use_mesh builds the env and logger in every rank: "
+                             "pass neither")
+        return multihost.spawn_mesh(train, cfg, ranks)
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         "COMA", cfg, init, train_block, eval_fn,
@@ -440,6 +467,7 @@ def train(cfg: COMAConfig, env=None, logger=None):
         eval_params=lambda r: r.actor_params,
         print_keys=("rollout/ep_reward", "train/critic_loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["COMA"],
     )
 
 

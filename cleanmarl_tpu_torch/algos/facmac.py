@@ -82,15 +82,15 @@ class FACMACConfig:
     log_interval: int = 500
     eval_steps: int = 5000
     num_eval_ep: int = 10
-    checkpoint_dir: str = ""         # not ported yet (ROADMAP Queue A, A7)
+    checkpoint_dir: str = ""         # saves the whole runner (core/checkpoint.py)
     checkpoint_every: int = 200_000
     resume: bool = False
     use_wnb: bool = False
     wnb_project: str = ""
     wnb_entity: str = ""
-    profile_dir: str = ""            # not ported yet (ROADMAP Queue A, A7)
-    use_mesh: bool = False           # not ported yet (ROADMAP Queue A, A7)
-    coordinator_address: str = ""    # not ported yet (ROADMAP Queue A, A7)
+    profile_dir: str = ""            # torch.profiler trace of block 1
+    use_mesh: bool = False           # one card only: the DP path is ROADMAP A8
+    coordinator_address: str = ""    # one rank only: the DP path is ROADMAP A8
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1

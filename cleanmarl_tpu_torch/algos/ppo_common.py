@@ -18,10 +18,21 @@ loops over batched tensor ops that stay on the device:
   (``ops/gru_kernel.py``), else the step-by-step scan;
 - ``train_block``: ``log_interval`` rollouts and updates, returning
   device tensors; the driver moves them to the host once per block.
+
+In a process group (``distributed/dp.py``) each rank steps
+``num_envs / world`` envs, the global envs ``rank, rank + world, ...``;
+``num_envs`` stays the global count and ``runner.step`` counts global env
+steps. Reward, advantage and return statistics are reduced over the
+ranks, each loss is the rank's masked sum over the global count, and the
+gradients (with the loss metrics) are summed over the ranks in one
+all-reduce a minibatch before the norm, clipping and Adam, so every rank
+takes the same step. K1 runs over the rank's own columns, K2, K3 and dw
+over its rows of each minibatch. With one rank nothing is reduced.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import Any, Dict
@@ -37,6 +48,7 @@ from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.base import categorical
 from cleanmarl_tpu_torch.envs.external import as_vec
@@ -75,7 +87,7 @@ class PPOConfig:
     entropy_coef: float = 0.001
     anneal_entropy: bool = False
     epochs: int = 3
-    num_minibatches: int = 1        # >1: contiguous env-axis slices per epoch
+    num_minibatches: int = 1        # >1: env-axis slices per epoch (split over ranks)
     remat_actor: bool = False       # recompute the actor sequence in backward
     gru_impl: str = "auto"          # auto | scan | kernel (xla | pallas aliases)
     compute_dtype: str = "float32"  # "bfloat16": bf16 operands, f32 accumulate
@@ -86,15 +98,15 @@ class PPOConfig:
     log_interval: int = 8           # rollouts per host log
     eval_steps: int = 50_000
     num_eval_ep: int = 10
-    checkpoint_dir: str = ""        # not ported yet (ROADMAP Slice 7)
+    checkpoint_dir: str = ""        # saves the whole runner (core/checkpoint.py)
     checkpoint_every: int = 200_000
     resume: bool = False
     use_wnb: bool = False
     wnb_project: str = ""
     wnb_entity: str = ""
-    profile_dir: str = ""           # not ported yet (ROADMAP Slice 7)
-    use_mesh: bool = False          # not ported yet (ROADMAP Slice 7)
-    coordinator_address: str = ""   # not ported yet (ROADMAP Slice 7)
+    profile_dir: str = ""           # torch.profiler trace of block 1
+    use_mesh: bool = False          # one rank per visible card (distributed/)
+    coordinator_address: str = ""   # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -114,7 +126,7 @@ class PPORunnerState:
     avail: torch.Tensor
     actor_h: torch.Tensor      # (num_envs, n_agents, H); zeros when FF
     stats: EpisodeStats
-    step: int                  # env transitions so far (host counter)
+    step: int                  # global env transitions so far (host counter)
     num_updates: int
     vnorm: Dict[str, torch.Tensor]
     generator: torch.Generator
@@ -131,10 +143,12 @@ def alive_mask(avail):
 
 
 def wmean(x, w):
-    """Weighted mean over all elements; ``w=None`` → plain mean."""
+    """Weighted mean over all elements of every rank; ``w=None`` → plain
+    mean."""
     if w is None:
-        return x.mean()
-    return (x * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return dp.global_mean(x)
+    num, den = dp.global_sum((x * w).sum(), w.sum())
+    return num / torch.clamp(den, min=1.0)
 
 
 def wstandardize(x, w):
@@ -150,10 +164,14 @@ def vnorm_init(device):
 
 
 def vnorm_update(vn, batch, w=None):
-    """Welford merge of one returns batch into the running stats."""
+    """Welford merge of one returns batch (of every rank) into the running
+    stats."""
     bm = wmean(batch, w)
     bv = wmean(torch.square(batch - bm), w)
-    bc = float(batch.numel()) if w is None else torch.clamp(w.sum(), min=1.0)
+    if w is None:
+        bc = float(batch.numel() * dp.rank_world()[1])
+    else:
+        bc = torch.clamp(dp.global_sum(w.sum())[0], min=1.0)
     tot = vn["count"] + bc
     delta = bm - vn["mean"]
     mean = vn["mean"] + delta * bc / tot
@@ -171,12 +189,14 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
         env_kw = {"unit_collisions": True} if cfg.unit_collisions else {}
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device, **env_kw)
-    vec = as_vec(env, cfg.num_envs)
     rollout_len = cfg.rollout_len or env.episode_limit
     n_mb = max(1, cfg.num_minibatches)
     if cfg.num_envs % n_mb:
         raise ValueError(f"num_envs={cfg.num_envs} not divisible by "
                          f"num_minibatches={n_mb}")
+    world = dp.rank_world()[1]
+    N = dp.check_layout(cfg.num_envs, n_mb, world)     # this rank's envs
+    vec = as_vec(env, N)
     total_updates = cfg.epochs * n_mb * max(
         cfg.total_timesteps // (rollout_len * cfg.num_envs), 1)
     n_updates = total_updates if cfg.anneal_lr else 0
@@ -247,8 +267,8 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             actor_opt=actor_opt.init(actor_params),
             critic_opt=critic_opt.init(critic_params),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
-            actor_h=torch.zeros((cfg.num_envs, n_agents, H), device=device),
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0,
+            actor_h=torch.zeros((N, n_agents, H), device=device),
+            stats=EpisodeStats.create(N, device), step=0,
             num_updates=0, vnorm=vnorm_init(device), generator=generator,
         )
 
@@ -256,7 +276,6 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
     @torch.no_grad()
     def collect_rollout(runner: PPORunnerState):
         gen = runner.generator
-        N = cfg.num_envs
         traj = {
             "obs": torch.empty((rollout_len,) + tuple(runner.obs.shape), device=device),
             "state": torch.empty((rollout_len,) + tuple(runner.state.shape),
@@ -290,7 +309,7 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             obs, state, avail = ts2.obs, ts2.state, ts2.avail
         runner = runner.replace(env_state=env_state, obs=obs, state=state,
                                 avail=avail, actor_h=h, stats=stats,
-                                step=runner.step + rollout_len * N)
+                                step=runner.step + rollout_len * cfg.num_envs)
         return runner, traj, h0
 
     # ------------------------------------------------------------------
@@ -313,8 +332,8 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             if cfg.normalize_advantage:
                 adv = wstandardize(adv, alive)
             if cfg.normalize_return:
-                ret_am = returns.mean(-1)
-                returns = (returns - ret_am.mean()) / (ret_am.std(unbiased=False) + 1e-8)
+                mu, std = dp.global_mean_std(returns.mean(-1))
+                returns = (returns - mu) / (std + 1e-8)
             vnorm = runner.vnorm
             if cfg.normalize_values:
                 vnorm = vnorm_update(vnorm, returns, alive)
@@ -331,8 +350,15 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
                 return torch.utils.checkpoint.checkpoint(
                     actor_logits_seq, *args, use_reentrant=False)
 
-        def actor_loss_fn(actor_params, mb):
+        def share(x, mb):
+            """This rank's share of the minibatch's (alive-weighted) mean:
+            its sum over the count of every rank (the mean on one rank)."""
             w = mb.get("alive")
+            if w is not None:
+                return (x * w).sum() / mb["count"]
+            return x.mean() if world == 1 else x.sum() / (x.numel() * world)
+
+        def actor_loss_fn(actor_params, mb):
             logits = logits_seq(actor_params, mb["h0"], mb["obs"], mb["avail"],
                                 mb["ended"])
             logp_all = torch.log_softmax(logits, dim=-1)
@@ -341,17 +367,17 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             ratio = torch.exp(log_ratio)
             pg1 = mb["adv"] * ratio
             pg2 = mb["adv"] * torch.clamp(ratio, 1.0 - cfg.ppo_clip, 1.0 + cfg.ppo_clip)
-            pg = wmean(torch.minimum(pg1, pg2), w)
+            pg = share(torch.minimum(pg1, pg2), mb)
             p = torch.exp(logp_all)
-            entropy = wmean(-torch.sum(p * logp_all, dim=-1), w)
+            entropy = share(-torch.sum(p * logp_all, dim=-1), mb)
             loss = -pg - ent_coef * entropy
-            kl = wmean((ratio - 1.0) - log_ratio, w)
-            clipped = wmean((torch.abs(ratio - 1.0) > cfg.ppo_clip).float(), w)
+            kl = share((ratio - 1.0) - log_ratio, mb)
+            clipped = share((torch.abs(ratio - 1.0) > cfg.ppo_clip).float(), mb)
             return loss, (entropy, kl, clipped)
 
         def critic_loss_fn(critic_params, mb):
             v = critic_values(critic_params, mb["obs"], mb["state"], dtype=mm_dtype)
-            return wmean(torch.square(v - mb["returns"]), mb.get("alive")), ()
+            return share(torch.square(v - mb["returns"]), mb), ()
 
         full = {k: traj[k] for k in ("obs", "state", "avail", "action", "logp", "ended")}
         full["adv"], full["returns"] = adv, returns
@@ -360,17 +386,26 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
 
         a_params, c_params = runner.actor_params, runner.critic_params
         a_opt, c_opt = runner.actor_opt, runner.critic_opt
-        mb_size = cfg.num_envs // n_mb
+        mb_size = N // n_mb
+        slices = [slice(i * mb_size, (i + 1) * mb_size) for i in range(n_mb)]
+        if cfg.death_masking:
+            # every minibatch's alive count over the ranks, in one collective
+            counts = dp.global_sum(*(alive[:, sl].sum() for sl in slices))
         epoch_ms = []
         for _ in range(cfg.epochs):
             mb_ms = []
-            for i in range(n_mb):
-                sl = slice(i * mb_size, (i + 1) * mb_size)
+            for i, sl in enumerate(slices):
                 mb = {k: v[:, sl] for k, v in full.items()}
                 mb["h0"] = h0[sl]
+                if cfg.death_masking:
+                    mb["count"] = torch.clamp(counts[i], min=1.0)
                 a_loss, (entropy, kl, clipped), a_grads = value_and_grad(
                     actor_loss_fn, a_params, mb)
                 c_loss, _, c_grads = value_and_grad(critic_loss_fn, c_params, mb)
+                # the gradients and the loss metrics of every rank, summed
+                a_grads, c_grads, (a_loss, c_loss, entropy, kl, clipped) = (
+                    dp.all_reduce_sum([a_grads, c_grads,
+                                       [a_loss, c_loss, entropy, kl, clipped]]))
                 with torch.no_grad():
                     a_gnorm = nets.global_norm(a_grads)
                     c_gnorm = nets.global_norm(c_grads)
@@ -413,7 +448,16 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
 
     def phase_timer(runner, iters: int = 3):
         """Per-phase wall time, rollout vs PPO update, each timed alone
-        on the same runner and ended with a device synchronize."""
+        on the same runner and ended with a device synchronize. The
+        runner's generator is put back as it was, so a run that times its
+        phases trains on the same stream as one that does not."""
+        gen_state = runner.generator.get_state()
+        try:
+            return _phase_times(runner, iters)
+        finally:
+            runner.generator.set_state(gen_state)
+
+    def _phase_times(runner, iters):
         collect_rollout(runner)
         _sync()
         t0 = time.perf_counter()
@@ -467,14 +511,26 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
         "device": device,
         "collect_rollout": collect_rollout,
         "ppo_update": ppo_update,
+        "local_envs": N,
     }
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: PPOConfig, env=None, centralized: bool = False,
           algo_name: str = "IPPO", logger=None):
+    """``--use_mesh`` on more than one card spawns one rank per card
+    (``distributed/multihost.py``) and returns (None, rank 0's last eval
+    metrics); the env is then built from the config in every rank."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    ranks = multihost.mesh_ranks(cfg)
+    if ranks > 1:
+        if env is not None or logger is not None:
+            raise ValueError("--use_mesh builds the env and logger in every rank: "
+                             "pass neither")
+        return multihost.spawn_mesh(functools.partial(
+            train, centralized=centralized, algo_name=algo_name), cfg, ranks)
     init, train_block, eval_fn, meta = make_train(cfg, env, centralized, algo_name)
     return run_training(
         algo_name, cfg, init, train_block, eval_fn,
@@ -482,4 +538,6 @@ def train(cfg: PPOConfig, env=None, centralized: bool = False,
         eval_params=lambda r: r.actor_params,
         print_keys=("rollout/ep_reward", "train/actor_loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["PPO"],
+        phase_timer=meta["phase_timer"],
     )

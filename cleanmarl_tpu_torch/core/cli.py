@@ -1,7 +1,8 @@
 """Tiny tyro-compatible CLI built from a flat ``@dataclass`` (port of
-``cleanmarl_tpu/core/cli.py``, without the multi-host bootstrap): each
-field is ``--field_name`` (and ``--field-name``), typed from the
-annotation, with the dataclass default.
+``cleanmarl_tpu/core/cli.py``): each field is ``--field_name`` (and
+``--field-name``), typed from the annotation, with the dataclass default.
+Right after parsing it joins the process group when the config carries
+``--coordinator_address`` (``distributed/multihost.py``).
 """
 from __future__ import annotations
 
@@ -44,4 +45,10 @@ def cli(cls: Type[T], args: Optional[Sequence[str]] = None,
         else:
             parser.add_argument(*names, type=ftype, default=field.default, help=" ")
     ns = parser.parse_args(args)
-    return cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(cls) if f.init})
+    cfg = cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(cls) if f.init})
+    # the multi-process bootstrap precedes every other torch.distributed
+    # call (no-op without --coordinator_address)
+    from cleanmarl_tpu_torch.distributed.multihost import maybe_initialize
+
+    maybe_initialize(cfg)
+    return cfg

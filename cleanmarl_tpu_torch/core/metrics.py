@@ -1,7 +1,9 @@
 """On-device rollout statistics (port of ``cleanmarl_tpu/core/metrics.py``).
 
 The running per-env return/length and the block-level sums stay on the
-device; the host reads one small dict per logging interval.
+device; the host reads one small dict per logging interval. In a
+data-parallel run each rank accumulates its own envs' sums, and
+``rollout_metrics`` adds them over the ranks in one collective.
 """
 from __future__ import annotations
 
@@ -9,6 +11,8 @@ import dataclasses
 from typing import Dict
 
 import torch
+
+from cleanmarl_tpu_torch.distributed.dp import global_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +49,12 @@ class EpisodeStats:
         return dataclasses.replace(self, ret_sum=z, len_sum=z, won_sum=z, count=z)
 
     def rollout_metrics(self) -> Dict[str, torch.Tensor]:
-        denom = torch.clamp(self.count, min=1.0)
+        ret_sum, len_sum, won_sum, count = global_sum(
+            self.ret_sum, self.len_sum, self.won_sum, self.count)
+        denom = torch.clamp(count, min=1.0)
         return {
-            "rollout/ep_reward": self.ret_sum / denom,
-            "rollout/ep_length": self.len_sum / denom,
-            "rollout/battle_won": self.won_sum / denom,
-            "rollout/num_episodes": self.count,
+            "rollout/ep_reward": ret_sum / denom,
+            "rollout/ep_length": len_sum / denom,
+            "rollout/battle_won": won_sum / denom,
+            "rollout/num_episodes": count,
         }

@@ -186,6 +186,9 @@ def _dims(H, gi):
                          f"{MAX_HIDDEN}, got {H}")
     if gi.dim() != 3:
         raise ValueError(f"gi must be (T, M, 3H), got {tuple(gi.shape)}")
+    if gi.shape[0] == 0 or gi.shape[1] == 0:
+        # a rank with no rows of a minibatch must not launch an empty grid
+        raise ValueError(f"GRU kernels refuse an empty input: gi {tuple(gi.shape)}")
     return gi.shape[0], gi.shape[1], H
 
 

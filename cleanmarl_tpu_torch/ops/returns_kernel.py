@@ -120,10 +120,12 @@ def _launch(rewards, ended, values, bootstrap, gamma, lam):
     if values.numel() >= 2**31:
         raise ValueError("lambda_returns kernel: T * B must be below 2^31 (32-bit "
                          f"offsets), got {tuple(values.shape)}")
+    if values.numel() == 0:
+        # a rank with no columns (T or B = 0) must not launch an empty grid
+        raise ValueError("lambda_returns kernel: refusing an empty input of shape "
+                         f"{tuple(values.shape)}")
     g = torch.empty_like(values, memory_format=torch.contiguous_format)
     a = torch.empty_like(values, memory_format=torch.contiguous_format)
-    if values.numel() == 0:
-        return g, a
     (r, e, v, b), Rr, Rv = kernel_args(rewards, ended, values, bootstrap)
     lib, fn = _launcher()
     p = _build.ptr

@@ -22,8 +22,8 @@ the JAX package, on the CPU.
   ``rollout/epsilon`` equal; feed-forward, GRU, n-step and
   bootstrap_truncation; one sampled ``eval_fn``;
 - the GRU carry is zero after an episode end; the guards' messages
-  (``tests/test_coma.py:145-160``); the CLI; the driver options that are
-  not ported; ``device="cuda"`` raising without a card.
+  (``tests/test_coma.py:145-160``); the CLI; the driver options with one
+  rank; ``device="cuda"`` raising without a card.
 
 The matrix-game learning tests of ``tests/test_coma.py`` are mirrored
 with their configs and thresholds (each run takes seconds on one CPU
@@ -426,9 +426,21 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
                                     dict(profile_dir="prof"), dict(num_processes=2)],
                          ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        coma.train(coma.COMAConfig(**TINY, device="cpu", **option))
+def test_unported_driver_options_raise(option, tmp_path, monkeypatch):
+    """The driver options that raised before they were ported now run for
+    COMA with one rank: the checkpoint leaves the final step's directory,
+    the profile a trace, ``use_mesh`` on the CPU does nothing, and
+    ``num_processes`` without a coordinator runs one process, as in the
+    JAX package. What still raises is an off-policy family with more than
+    one rank (the same test in their files); COMA's 2-rank path is held
+    in ``tests/test_torch_distributed.py``."""
+    monkeypatch.chdir(tmp_path)
+    runner, _ = coma.train(coma.COMAConfig(**TINY, device="cpu", **option))
+    assert runner.step == TINY["total_timesteps"]
+    if "checkpoint_dir" in option:
+        assert (tmp_path / "ckpt" / str(TINY["total_timesteps"])).is_dir()
+    if "profile_dir" in option:
+        assert any((tmp_path / "prof").iterdir())
 
 
 def test_cuda_request_raises_without_a_card():

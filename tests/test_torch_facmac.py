@@ -15,7 +15,7 @@ against the JAX package, on the CPU.
   ``make_train``: the JAX metric keys, finite values, and
   ``train/num_updates``, ``train/update_debt`` and ``rollout/epsilon``
   (ε runs on the update clock) equal, uncapped and capped; one
-  ``eval_fn``; the CLI; the driver options that are not ported.
+  ``eval_fn``; the CLI; the driver options with more than one rank (ROADMAP A8).
 
 The JAX learning test (``tests/test_facmac.py:8``, 40,000 env steps with
 an update per completed episode) is not mirrored: eager updates take
@@ -40,6 +40,7 @@ from cleanmarl_tpu_torch.core.driver import to_host
 from cleanmarl_tpu_torch.core.params import (
     from_numpy_tree, opt_state_from_numpy, tree_map,
 )
+from cleanmarl_tpu_torch.distributed import dp, multihost
 from cleanmarl_tpu_torch.envs import registry as treg
 
 torch.set_num_threads(1)
@@ -270,8 +271,16 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
                                     dict(profile_dir="prof"), dict(num_processes=2)],
                          ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_driver_options_raise(option, monkeypatch):
+    """Every driver option with more than one rank (a 2-rank process group,
+    or ``use_mesh`` over two cards) raises: the off-policy families' data
+    parallelism is ROADMAP Queue A, A8. With one rank the options run
+    (``tests/test_torch_checkpoint.py``)."""
+    if option.get("use_mesh"):
+        monkeypatch.setattr(multihost, "mesh_ranks", lambda cfg: 2)
+    else:
+        monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, A8"):
         facmac.train(facmac.FACMACConfig(**TINY, device="cpu", **option))
 
 

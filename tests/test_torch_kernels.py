@@ -513,3 +513,60 @@ def test_rnn_seq_apply_at_lbf_shape_kernel_route_matches_scan_on_card():
     64 envs x 2 agents, obs 15 + 2 agent ids, 6 actions: M=128)."""
     _card()
     _rnn_seq_apply_kernel_vs_scan(150, 64, 2, 17, 6, 0.02, seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["lambda_returns_T0", "lambda_returns_B0", "gru_seq_fwd",
+                                   "gru_seq_bwd", "gru_seq_dw"])
+def test_wrappers_refuse_empty_inputs_on_card(which):
+    """A data-parallel rank with no rows (M = 0) or no columns must not
+    launch a kernel with an empty grid: each wrapper raises, and no launch
+    is counted."""
+    _card()
+    before = {**returns_kernel.LAUNCHES, **gru_kernel.LAUNCHES}
+    if which.startswith("lambda_returns"):
+        shape = (0, 12) if which.endswith("T0") else (8, 0)
+        r, e, v = (torch.zeros(shape, device="cuda") for _ in range(3))
+        with pytest.raises(ValueError, match="empty"):
+            returns_kernel.lambda_returns_kernel(r, e.bool(), v, v[0] if shape[0] else
+                                                 torch.zeros(shape[1:], device="cuda"),
+                                                 0.99, 0.95)
+    else:
+        wh, bh, h0, gi, keep = _gru_inputs(6, 0, 64, seed=0, device="cuda")
+        hs = torch.zeros((6, 0, 64), device="cuda")
+        with pytest.raises(ValueError, match="empty"):
+            if which == "gru_seq_fwd":
+                gru_kernel.gru_seq_fwd(wh, bh, h0, gi, keep)
+            elif which == "gru_seq_bwd":
+                gru_kernel.gru_seq_bwd(wh, bh, h0, hs, gi, keep, hs, h0)
+            else:
+                gru_kernel.gru_seq_dw(h0, hs, keep, gi, hs)
+    assert {**returns_kernel.LAUNCHES, **gru_kernel.LAUNCHES} == before
+
+
+@pytest.mark.cuda
+def test_gru_kernels_on_an_interleaved_half_equal_the_full_rows_on_card():
+    """The main path's minibatch (T=60, 1024 envs x 3 agents, H=128) split
+    over 2 ranks by env (rank r takes envs r, r + 2, ...): K2 and K3 on one
+    rank's rows give bitwise the same rows as the full call, since every row
+    runs its own recurrence."""
+    _card()
+    T, envs, n, H = 60, 1024, 3, 128
+    wh, bh, h0, gi, keep = _gru_inputs(T, envs * n, H, seed=9, device="cuda")
+    g = torch.randn(T, envs * n, H, device="cuda")
+    gf = torch.randn(envs * n, H, device="cuda")
+    hf, hs = gru_kernel.gru_seq_fwd(wh, bh, h0, gi, keep)
+    full_bwd = gru_kernel.gru_seq_bwd(wh, bh, h0, hs, gi, keep, g, gf)
+    for rank in range(2):
+        rows = (torch.arange(rank, envs, 2, device="cuda")[:, None] * n
+                + torch.arange(n, device="cuda")).reshape(-1)
+
+        def part(x, axis):
+            return x.index_select(axis, rows).contiguous()
+        hf_r, hs_r = gru_kernel.gru_seq_fwd(wh, bh, part(h0, 0), part(gi, 1), part(keep, 1))
+        assert torch.equal(hf_r, part(hf, 0)) and torch.equal(hs_r, part(hs, 1))
+        got = gru_kernel.gru_seq_bwd(wh, bh, part(h0, 0), hs_r, part(gi, 1), part(keep, 1),
+                                     part(g, 1), part(gf, 0))
+        for a, b, axis in zip(got, full_bwd, (1, 1, 0)):
+            assert torch.equal(a, part(b, axis))
+    torch.cuda.synchronize()

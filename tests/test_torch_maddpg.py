@@ -19,7 +19,8 @@ against the JAX package, on the CPU.
   ``train/num_updates`` / ``train/update_debt`` equal (every MPE env
   truncates at step 25), uncapped, capped and recurrent; one ``eval_fn``;
 - the GRU carry is zero after every episode end; the CLI; the driver
-  options that are not ported; ``device="cuda"`` raising without a card.
+  options with more than one rank (ROADMAP A8); ``device="cuda"``
+  raising without a card.
 
 The JAX learning tests (``tests/test_maddpg.py:36,62``, 40,000 env steps
 with an update per completed episode) are not mirrored: eager updates
@@ -44,6 +45,7 @@ from cleanmarl_tpu_torch.core.driver import to_host
 from cleanmarl_tpu_torch.core.params import (
     from_numpy_tree, opt_state_from_numpy, tree_map,
 )
+from cleanmarl_tpu_torch.distributed import dp, multihost
 from cleanmarl_tpu_torch.envs import registry as treg
 
 torch.set_num_threads(1)
@@ -346,8 +348,16 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
                                     dict(profile_dir="prof"), dict(num_processes=2)],
                          ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_driver_options_raise(option, monkeypatch):
+    """Every driver option with more than one rank (a 2-rank process group,
+    or ``use_mesh`` over two cards) raises: the off-policy families' data
+    parallelism is ROADMAP Queue A, A8. With one rank the options run
+    (``tests/test_torch_checkpoint.py``)."""
+    if option.get("use_mesh"):
+        monkeypatch.setattr(multihost, "mesh_ranks", lambda cfg: 2)
+    else:
+        monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, A8"):
         maddpg.train(maddpg.MADDPGConfig(**TINY, device="cpu", **option))
 
 

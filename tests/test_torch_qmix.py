@@ -17,7 +17,8 @@ package, on the CPU.
   finite values, and ``train/num_updates`` / ``train/update_debt`` equal
   to the JAX package's after each block (the episode clock fixes them:
   every MPE env truncates at step 25), uncapped and capped; one
-  ``eval_fn``; the CLI; the ``core/driver.py`` options that are not ported.
+  ``eval_fn``; the CLI; the ``core/driver.py`` options with more than
+  one rank (ROADMAP A8).
 """
 import functools
 
@@ -47,6 +48,7 @@ from cleanmarl_tpu_torch.core.params import (
 )
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.distributed import dp, multihost
 from cleanmarl_tpu_torch.envs import registry as treg
 
 torch.set_num_threads(1)
@@ -370,6 +372,14 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
                                     dict(profile_dir="prof"), dict(num_processes=2)],
                          ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_driver_options_raise(option, monkeypatch):
+    """Every driver option with more than one rank (a 2-rank process group,
+    or ``use_mesh`` over two cards) raises: the off-policy families' data
+    parallelism is ROADMAP Queue A, A8. With one rank the options run
+    (``tests/test_torch_checkpoint.py``)."""
+    if option.get("use_mesh"):
+        monkeypatch.setattr(multihost, "mesh_ranks", lambda cfg: 2)
+    else:
+        monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, A8"):
         tqmix.train(tqmix.QMIXConfig(**TINY, device="cpu", **option))
