@@ -104,6 +104,25 @@ Phases, each of which must pass:
    the all-reduce's ms per update; a 2-process MAPPO CLI cluster saves
    and a resumed one prints ``resumed from step N`` on rank 0 only and
    ends at its total; a ``--profile_dir`` run leaves a trace.
+10. Data-parallel QMIX, VDN, recurrent Q, MADDPG and FACMAC over two
+   gloo ranks on the one card (``distributed/dp.py``: rings sharded by
+   capacity; phase 2 also holds and times K2, K3 and dw at a rank's
+   shapes, T=150, M=48 and T=25, M=32): the commit of every ring kind
+   (injected steps, at capacities the ranks divide and do not) equal to
+   the single-process ring, scratch row aside; one ``qmix_rnn_3m`` and
+   one ``maddpg_rnn_sl`` update split over the ranks against the
+   single-process one (phase 9's one-step tolerances); ``qmix_rnn_3m``
+   driven at full width on 2 ranks (env-steps/s against phase 6's single
+   process, ring and peak memory per rank, updates and collectives per
+   block, K2/K3/dw launches per update on each rank, params bitwise
+   identical); one 2-rank block of ``qmix_spread``, ``vdn_spread``,
+   ``vdn_rnn_seq_3m``, ``maddpg_rnn_sl`` and ``facmac_3m``; a 2-process
+   QMIX CLI cluster that saves and resumes; and a ``qmix_rnn_3m`` resume
+   in one process, bitwise but for the ring's scratch row.
+
+``--dp_ranks N`` (N cards) builds the kernels and runs only phase 10's
+rank checks over N ranks (nccl with a card each) and recurrent QMIX and
+FACMAC through the CLI with ``--use_mesh``; it prints no result line.
 
 The line before last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -1665,11 +1684,12 @@ def check_updates_against_cpu(names, tag):
         else:
             batch, mask = _sl_batch(env, cfg_c, 0)
             a_p, c_p, a_o, c_o, *_ = meta_c["update"](runner, batch, mask,
-                                                      meta_c["draw_noise"](gen, batch))
+                                                      meta_c["draw_noise"](
+                                                          gen, batch["action"].shape))
             runner = runner.replace(actor_params=a_p, critic_params=c_p, actor_opt=a_o,
                                     critic_opt=c_o)
             batch, mask = _sl_batch(env, cfg_c, 1)
-            noise = meta_c["draw_noise"](gen, batch)
+            noise = meta_c["draw_noise"](gen, batch["action"].shape)
             out_c = meta_c["update"](runner, batch, mask, noise)
             out_g = meta_g["update"](move(runner), tree_map(to_cuda, batch), mask.cuda(),
                                      tree_map(to_cuda, noise))
@@ -1769,7 +1789,7 @@ def drive_recipe(name, counters):
     else:
         g = torch.Generator("cuda").manual_seed(2)
         batch, mask = runner.ring.sample(g, cfg.batch_size)
-        noise = meta["draw_noise"](g, batch)
+        noise = meta["draw_noise"](g, batch["action"].shape)
 
         def one_update():
             meta["update"](runner, batch, mask, noise)
@@ -2354,7 +2374,7 @@ def _dp_rank_body(rank, world, port):
             res["launches"] = {k: v for table in counters for k, v in table.items()}
     res.update(block_walls=walls, metrics=metrics, step=runner.step,
                params_identical=identical(runner), comm_calls=comm.calls,
-               comm_elements=comm.elements, comm_s=comm.seconds,
+               comm_bytes=comm.bytes, comm_s=comm.seconds,
                updates_per_block=cfg.log_interval,
                finite=all(math.isfinite(v) for v in metrics.values()))
     return res
@@ -2432,7 +2452,7 @@ def check_data_parallel():
     walls = [[round(w, 3) for w in results[k]["block_walls"]] for k in sorted(results)]
     log(f"[dp] block walls (s) by rank {walls}"
         f"; global env-steps/s {steps / block_s:.1f} (block 2); all-reduce {ar_ms:.3f} ms per "
-        f"update ({r0['comm_calls']} collectives, {r0['comm_elements']} floats in block 3, "
+        f"update ({r0['comm_calls']} collectives, {r0['comm_bytes']} bytes in block 3, "
         f"each between synchronizes); spawn to results {time.perf_counter() - t0:.1f} s")
     for rank in sorted(results):
         r = results[rank]
@@ -2441,10 +2461,10 @@ def check_data_parallel():
                 launches=r0["launches"])
 
 
-def run_procs(cmds, timeout=600):
-    """Start every MAPPO CLI command at once from the repo root → their
-    outputs; fails if any exits non-zero."""
-    procs = [subprocess.Popen([sys.executable, "-m", "cleanmarl_tpu_torch.algos.mappo"] + c,
+def run_procs(cmds, timeout=600, module="mappo"):
+    """Start every CLI command of ``module`` (an algorithm) at once from the
+    repo root → their outputs; fails if any exits non-zero."""
+    procs = [subprocess.Popen([sys.executable, "-m", f"cleanmarl_tpu_torch.algos.{module}"] + c,
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
     outs = []
@@ -2514,9 +2534,609 @@ def check_dp_cli():
                 trace_mib=trace_mib, walls=[t1 - t0, t2 - t1])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data-parallel QMIX, VDN, recurrent Q, MADDPG and FACMAC over 2
+# ranks on the one card (gloo; rings sharded by capacity)
+# ---------------------------------------------------------------------------
+
+# (a) injected steps of 64 envs into each ring kind, at a capacity the 2
+# ranks divide and one they do not; records of 3m's obs, action and avail
+# widths; T_max cut to 20 (the commit does not depend on it)
+P10_COMMITS = {"episode_100": ("episode", 100, 20), "episode_101": ("episode", 101, 20),
+               "sequence_256": ("sequence", 256, 10), "sequence_257": ("sequence", 257, 10),
+               "transition_1000": ("transition", 1000, None),
+               "transition_1001": ("transition", 1001, None)}
+P10_ENVS, P10_COMMIT_STEPS = 64, 60
+# (b) phase 9's one-step check: params (max |diff|), gradients (Adam's first
+# moment over 1 - b1, relative to each leaf's largest), metrics (loss and
+# gradient norms, relative to each one's magnitude where it is above 1: a
+# norm near 100 has float32 steps of 8e-6)
+P10_PARAM_TOL, P10_GRAD_TOL, P10_METRIC_TOL = 5e-5, 1e-5, 1e-5
+# (c) qmix_rnn_3m at its recipe's width: timed blocks, then one block with
+# each collective timed between two synchronizes
+P10_TIMED_BLOCKS = 2
+# (d) scripts/validate_baselines.py:286-298 facmac_3m, copied; the other
+# recipes are phases 5-7's. Each runs blocks until an update has run, then
+# one more; run length only is cut (vdn_spread: 100 iterations a block)
+FACMAC_3M = dict(env_type="smaclite", env_name="3m", num_envs=64, total_timesteps=2_000_000,
+                 buffer_size=5_000, batch_size=64, train_freq=1, learning_rate_actor=5e-4,
+                 learning_rate_critic=5e-4, actor_hidden_dim=64, critic_hidden_dim=64,
+                 hyper_dim=64, polyak=0.005, exploration_fraction=750.0,
+                 max_updates_per_iter=8, log_interval=50, seed=0, verbose=False)
+P10_OTHERS = ("qmix_spread", "vdn_spread", "vdn_rnn_seq_3m", "maddpg_rnn_sl", "facmac_3m")
+P10_LOG_INTERVAL = {"vdn_spread": 100}
+# (e) the 2-process QMIX CLI (qmix_spread's widths): one block of 40
+# iterations x 32 envs saved, then a resumed cluster of one more block
+P10_CLI = ["--env_type", "mpe", "--env_name", "simple_spread_v3", "--device", "cuda",
+           "--num_envs", "32", "--buffer_size", "5000", "--batch_size", "32",
+           "--exploration_fraction", "0.1", "--hidden_dim", "64", "--log_interval", "40",
+           "--eval_steps", "1000000", "--seed", "0", "--verbose", "true"]
+P10_CLI_STEPS = (1280, 2560)
+P10_RESUME_BUFFER = 500     # qmix_rnn_3m's resume check: the ring cut from 5000 episodes
+
+
+def check_paths10_shapes(results):
+    """K2, K3 and dw at the shapes a rank's update gives them in phase 10:
+    ``qmix_rnn_3m`` (T=150, 16 episodes x 3 agents = 48 rows, H=64, no
+    resets: episodes start at t=0) and ``maddpg_rnn_sl`` (T=25, 16 x 2 =
+    32 rows). Held against their plain versions and timed; adds
+    ``paths10_shapes`` to each tensor-core GRU row."""
+    import torch
+
+    for T, M, H in ((150, 48, 64), (25, 32, 64)):
+        keep = torch.ones(T, M, device="cuda")
+        errs, ins, hs, rec = check_gru_shape(T, M, H, seed=M + T, keep=keep)
+        add_shape_rows(results, "paths10_shapes", T, M, H, time_gru(T, M, H, ins, hs, rec))
+        keep_max_err(results, errs)
+
+
+def _p10_recipe(name, device, buffer_size=None):
+    """(module, config, runner fields table) of a phase-10 recipe."""
+    import dataclasses
+
+    from cleanmarl_tpu_torch.algos import facmac, maddpg, qmix, recurrent_q, vdn
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS
+
+    if name in RECQ:
+        mod, cfg = recurrent_q, recurrent_q.RecurrentQConfig(**RECQ[name], device=device)
+        table = "RECURRENT_Q"
+    elif name == "facmac_3m":
+        mod, cfg, table = facmac, facmac.FACMACConfig(**FACMAC_3M, device=device), "FACMAC"
+    elif name == "maddpg_rnn_sl":
+        mod, cfg, table = maddpg, _recipe(name, device)[1], "MADDPG"
+    elif name == "qmix_spread":
+        mod, cfg, table = qmix, qmix.QMIXConfig(**OFFPOLICY["qmix"], device=device), "QMIX"
+    else:
+        mod, cfg, table = vdn, vdn.VDNConfig(**OFFPOLICY["vdn"], device=device), "VDN"
+    if name in P10_LOG_INTERVAL:
+        cfg = dataclasses.replace(cfg, log_interval=P10_LOG_INTERVAL[name])
+    if buffer_size:
+        cfg = dataclasses.replace(cfg, buffer_size=buffer_size)
+    return mod, cfg, DATA_FIELD_DIMS[table]
+
+
+def _p10_steps(seed):
+    """P10_COMMIT_STEPS injected (record, ended) steps of P10_ENVS envs."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(P10_COMMIT_STEPS):
+        avail = rng.rand(P10_ENVS, 3, RQ_ACTIONS) < 0.7
+        out.append(({"obs": rng.randn(P10_ENVS, 3, RQ_OBS).astype(np.float32),
+                     "action": rng.randint(0, RQ_ACTIONS, (P10_ENVS, 3)),
+                     "reward": rng.randn(P10_ENVS).astype(np.float32),
+                     "avail": avail}, rng.rand(P10_ENVS) < 0.08))
+    return out
+
+
+def _p10_feed(kind, cap, length, steps, rank, world):
+    """``steps`` into a ring of ``kind`` on the card (this rank's envs ``rank
+    :: world``) → (its rows and lengths as numpy, the host counters after
+    each step, this rank's rows of a sample of 32 from a seeded
+    generator)."""
+    import numpy as np
+    import torch
+    from cleanmarl_tpu_torch.buffers.episode import EpisodeAccumulator, EpisodeBuffer
+    from cleanmarl_tpu_torch.buffers.sequence import SequenceAccumulator, SequenceBuffer
+    from cleanmarl_tpu_torch.buffers.transition import TransitionBuffer
+    from cleanmarl_tpu_torch.core.params import tree_map
+
+    def cuda(x):
+        return torch.as_tensor(np.ascontiguousarray(x[rank::world])).to("cuda")
+    example = {k: torch.zeros(v.shape[1:], dtype=torch.as_tensor(v).dtype, device="cuda")
+               for k, v in steps[0][0].items()}
+    n = P10_ENVS // world
+    acc = None
+    if kind == "episode":
+        ring = EpisodeBuffer.create(cap, length, example, rank, world)
+        acc = EpisodeAccumulator.create(n, length, example)
+    elif kind == "sequence":
+        ring = SequenceBuffer.create(cap, length, example, rank, world)
+        acc = SequenceAccumulator.create(n, length, example)
+    else:
+        ring = TransitionBuffer.create(cap, example, rank, world)
+    counters = []
+    for rec, ended in steps:
+        rec = {k: cuda(v) for k, v in rec.items()}
+        if acc is None:
+            ring.add_batch(rec)
+            counts = None
+        else:
+            counts = acc.add_step(ring, rec, cuda(ended))
+        counters.append((ring.cursor, ring.size, counts))
+    torch.cuda.synchronize()
+    sample = ring.sample(torch.Generator("cuda").manual_seed(3), 32)
+    numpy = lambda t: tree_map(lambda x: x.cpu().numpy(), t)  # noqa: E731
+    return dict(data=numpy(ring.data), length=numpy(getattr(ring, "length", {})),
+                counters=counters, sample=numpy(sample))
+
+
+def _p10_updates(world):
+    """One ``qmix_rnn_3m`` and one ``maddpg_rnn_sl`` update at this rank's
+    rows ``rank::world`` of a fixed batch (random records of the recipes'
+    widths, seeded; MADDPG's Gumbel noise drawn at the full batch shape
+    from a seeded generator), from the recipes' init params and fresh Adam
+    states (the ring cut to 64 rows: init draws nothing for it) → {name:
+    (params, gradients (Adam's first moment / 0.1), metrics)}."""
+    import torch
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+    from cleanmarl_tpu_torch.distributed import dp
+    from cleanmarl_tpu_torch.envs import registry
+
+    rank = dp.rank_world()[0]
+
+    def mine(x):
+        return x[rank::world].contiguous().to("cuda") if isinstance(x, torch.Tensor) else x
+    out = {}
+    mod, cfg, _ = _p10_recipe("qmix_rnn_3m", "cuda", buffer_size=64)
+    init, _, _, meta = mod.make_train(cfg)
+    runner = init(torch.Generator("cuda").manual_seed(0))
+    batch, mask = _recq_batch(cfg, registry.make("smaclite", "3m", agent_ids=True,
+                                                device="cuda"), 0)
+    p, o, loss, gnorm = meta["update"](runner.params, runner.target_params, runner.opt_state,
+                                       tree_map(mine, batch), mine(mask))
+    out["qmix_rnn_3m"] = ([x.cpu().numpy() for x in tree_leaves(p)],
+                          [m.cpu().numpy() / 0.1 for m in tree_leaves(o["mu"])],
+                          [float(loss), float(gnorm)])
+    del runner
+    mod, cfg, _ = _p10_recipe("maddpg_rnn_sl", "cuda", buffer_size=64)
+    init, _, _, meta = mod.make_train(cfg)
+    runner = init(torch.Generator("cuda").manual_seed(0))
+    env = registry.make(_SL["env_type"], _SL["env_name"], agent_ids=True, device="cuda")
+    batch, mask = _sl_batch(env, cfg, 0)
+    noise = meta["draw_noise"](torch.Generator("cuda").manual_seed(1), batch["action"].shape)
+    a_p, c_p, a_o, c_o, *metrics = meta["update"](runner, tree_map(mine, batch), mine(mask),
+                                                  tuple(mine(x) for x in noise))
+    out["maddpg_rnn_sl"] = ([x.cpu().numpy() for x in tree_leaves(a_p) + tree_leaves(c_p)],
+                            [m.cpu().numpy() / 0.1 for m in tree_leaves(a_o["mu"])
+                             + tree_leaves(c_o["mu"])],
+                            [float(m) for m in metrics])
+    return out
+
+
+def _p10_identical(tree):
+    """Every rank's leaves of ``tree`` bitwise equal to rank 0's (one
+    broadcast, one all-reduce)."""
+    import torch
+    import torch.distributed as dist
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+
+    flat = torch.cat([x.reshape(-1).float() for x in tree_leaves(tree)])
+    ref0 = flat.clone()
+    dist.broadcast(ref0, src=0)
+    bad = torch.tensor([0.0 if torch.equal(flat, ref0) else 1.0], device=flat.device)
+    dist.all_reduce(bad)
+    return float(bad) == 0.0
+
+
+def _p10_params(runner):
+    return {k: getattr(runner, k) for k in ("params", "actor_params", "critic_params")
+            if hasattr(runner, k)}
+
+
+def _p10_drive(name, counters, timed_blocks, comm_block):
+    """``name`` on this rank of the group at its recipe's width: init
+    (``global_runner_init``), warm-up iterations until the ring holds a
+    batch and an update has run, then ``timed_blocks`` blocks (kernel
+    counts and ``dp.COMM`` set to 0 before them) and, if ``comm_block``,
+    one more with each collective timed. → the measures of this rank."""
+    import torch
+    import torch.distributed as dist
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+    from cleanmarl_tpu_torch.distributed import dp
+
+    mod, cfg, table = _p10_recipe(name, "cuda")
+    rank = dp.rank_world()[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    init, train_block, _, meta = mod.make_train(cfg)
+    runner = dp.global_runner_init(init, torch.Generator("cuda").manual_seed(
+        dp.rank_seed(cfg.seed, rank)), table)
+    ring = getattr(runner, "ring", None) or runner.buffer
+    ring_mib = sum(x.numel() * x.element_size() for x in tree_leaves(ring.data) + (
+        [ring.length] if hasattr(ring, "length") else [])) / 2**20
+    warm = 0
+    while runner.num_updates == 0:
+        out = meta["train_iter"](runner)      # MADDPG's returns the runner alone
+        runner = out[0] if isinstance(out, tuple) else out
+        warm += 1
+        if warm > 20 * cfg.log_interval:
+            fail(f"{name}: no update after {warm} warm-up iterations on rank {rank}")
+    runner = runner.replace(stats=runner.stats.flush())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for table_ in counters:
+        for k in table_:
+            table_[k] = 0
+    dp.COMM.reset()
+    walls, updates, seen = [], [], []
+    for i in range(timed_blocks + int(comm_block)):
+        if i == timed_blocks:
+            calls, sent = dp.COMM.calls, dp.COMM.bytes
+            launches = {k: v for t in counters for k, v in t.items()}
+            dp.COMM.reset(timed=True)
+        n0 = runner.num_updates
+        torch.cuda.synchronize()
+        dist.barrier()
+        s = time.perf_counter()
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - s)
+        updates.append(runner.num_updates - n0)
+    if not comm_block:
+        calls, sent = dp.COMM.calls, dp.COMM.bytes
+        launches = {k: v for t in counters for k, v in t.items()}
+    comm_ms = dp.COMM.seconds * 1e3 / max(updates[-1], 1) if comm_block else None
+    dp.COMM.reset()
+    torch.cuda.synchronize()
+    return dict(
+        name=name, rank=rank, local_envs=meta["local_envs"], warmup_iters=warm,
+        setup_s=setup_s, block_walls=walls, updates=updates, metrics=seen,
+        finite=all(math.isfinite(v) for m in seen for v in m.values()),
+        step=runner.step, episodes=getattr(runner, "episodes", None),
+        num_updates=runner.num_updates, cursor=ring.cursor, size=ring.size,
+        capacity=ring.capacity, rows=tree_leaves(ring.data)[0].shape[0], ring_mib=ring_mib,
+        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30, launches=launches,
+        comm_calls=calls, comm_bytes=sent, comm_ms_per_update=comm_ms,
+        identical=_p10_identical(_p10_params(runner)),
+        steps_per_block=meta["steps_per_block"])
+
+
+def _p10_rank(rank, world, port, out):
+    """One rank of phase 10; sends (rank, status, result) to the parent."""
+    import traceback
+
+    try:
+        out.put((rank, "ok", _p10_rank_body(rank, world, port)))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _p10_rank_body(rank, world, port):
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import torch
+    from cleanmarl_tpu_torch.algos.qmix import QMIXConfig
+    from cleanmarl_tpu_torch.distributed import multihost
+    from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = {name: (kind, cap, length, _p10_steps(i))
+             for i, (name, (kind, cap, length)) in enumerate(sorted(P10_COMMITS.items()))}
+    res = dict(rank=rank)
+    if rank == 0:        # the single-process references, before the group exists
+        res["commit_ref"] = {n: _p10_feed(*c, 0, 1) for n, c in cases.items()}
+        res["update_ref"] = _p10_updates(1)
+    multihost.maybe_initialize(dataclasses.replace(
+        QMIXConfig(device="cuda"), coordinator_address=f"localhost:{port}",
+        num_processes=world, process_id=rank))
+    t0 = time.perf_counter()
+    res["commit"] = {n: _p10_feed(*c, rank, world) for n, c in cases.items()}
+    res["update"] = _p10_updates(world)
+    res["ab_s"] = time.perf_counter() - t0
+    counters = (returns_kernel.LAUNCHES, gru_kernel.LAUNCHES)
+    res["drive"] = {"qmix_rnn_3m": _p10_drive("qmix_rnn_3m", counters, P10_TIMED_BLOCKS, True)}
+    for name in P10_OTHERS:
+        res["drive"][name] = _p10_drive(name, counters, 1, False)
+    return res
+
+
+def _p10_union(ranks, key, cap):
+    """Global rows ``0..cap-1`` of a ring from the ranks' local rows (row
+    ``i`` on rank ``i % world`` at ``i // world``)."""
+    import numpy as np
+    from cleanmarl_tpu_torch.core.params import tree_map
+
+    world = len(ranks)
+    return tree_map(lambda *xs: np.stack([xs[i % world][i // world] for i in range(cap)]),
+                    *[r[key] for r in ranks])
+
+
+def check_offpolicy_dp(recq_single):
+    """Phase 10 (a)-(d) over two gloo ranks on the card; see the module
+    docstring. ``recq_single`` is phase 6's ``qmix_rnn_3m`` result, the
+    single process beside which the 2-rank env-steps/s is read (None:
+    none ran)."""
+    import multiprocessing
+
+    import numpy as np
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+    from cleanmarl_tpu_torch.distributed import dp, multihost
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = multihost.free_port()
+    procs = [ctx.Process(target=_p10_rank, args=(r, DP_WORLD, port, out))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(DP_WORLD):
+            rank, status, value = out.get(timeout=900)
+            if status != "ok":
+                fail(f"phase 10 rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"a phase 10 rank exited with {[p.exitcode for p in procs]}")
+    ranks = [results[r] for r in range(DP_WORLD)]
+    r0 = ranks[0]
+
+    # (a) the commit: the union of the ranks' rows equals the single-process
+    # ring (scratch row aside), the counters after every step too, and each
+    # rank's rows of a sample are the single-process sample's
+    for name, (kind, cap, _) in sorted(P10_COMMITS.items()):
+        ref = r0["commit_ref"][name]
+        got = [r["commit"][name] for r in ranks]
+        rows = [dp.owned_rows(cap, r, DP_WORLD) + (kind != "transition")
+                for r in range(DP_WORLD)]
+        if [tree_leaves(g["data"])[0].shape[0] for g in got] != rows:
+            fail(f"[p10 commit] {name}: ranks hold {[len(tree_leaves(g['data'])[0]) for g in got]} "
+                 f"rows, expected {rows}")
+        pairs = list(zip(tree_leaves(_p10_union(got, "data", cap)),
+                         [x[:cap] for x in tree_leaves(ref["data"])]))
+        if kind == "episode":
+            pairs.append((_p10_union([{"l": g["length"]} for g in got], "l", cap),
+                          ref["length"][:cap]))
+        if not all(np.array_equal(a, b) for a, b in pairs):
+            fail(f"[p10 commit] {name}: the 2-rank ring differs from the single-process one")
+        if any(g["counters"] != ref["counters"] for g in got):
+            fail(f"[p10 commit] {name}: host counters differ from the single process")
+        for r, g in enumerate(got):
+            for a, b in zip(tree_leaves(g["sample"]), tree_leaves(ref["sample"])):
+                if not np.array_equal(a, b[r::DP_WORLD]):
+                    fail(f"[p10 commit] {name}: rank {r}'s sample rows differ")
+        last = ref["counters"][-1]
+        log(f"[p10 commit] {name}: {P10_COMMIT_STEPS} steps of {P10_ENVS} envs, cursor "
+            f"{last[0]} size {last[1]} (capacity {cap}); union of the ranks' rows "
+            f"{rows} equals the single-process ring bitwise (scratch row aside), counters "
+            f"every step and each rank's sample rows too")
+
+    # (b) one update split over the ranks against the single process
+    upd = {}
+    for name, (p_ref, g_ref, m_ref) in r0["update_ref"].items():
+        p_got, g_got, m_got = r0["update"][name]
+        params_err = max(float(np.abs(a - b).max()) for a, b in zip(p_got, p_ref))
+        grads_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                        for a, b in zip(g_got, g_ref))
+        metrics_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(m_got, m_ref))
+        same = all(np.array_equal(a, b) for a, b in zip(ranks[1]["update"][name][0], p_got))
+        upd[name] = dict(params_err=params_err, grads_rel_err=grads_err,
+                         metrics_err=metrics_err, ranks_identical=same)
+        log(f"[p10 update] {name}: {DP_WORLD} ranks vs 1 on the same batch: params {params_err:.3e} "
+            f"(tol {P10_PARAM_TOL}), gradients {grads_err:.3e} of each leaf's largest (tol "
+            f"{P10_GRAD_TOL}), metrics {metrics_err:.3e} (tol {P10_METRIC_TOL}; "
+            f"{[round(m, 6) for m in m_got]} against {[round(m, 6) for m in m_ref]}); params "
+            f"{'bitwise identical' if same else 'DIFFERENT'} across the ranks")
+        if (params_err > P10_PARAM_TOL or grads_err > P10_GRAD_TOL
+                or metrics_err > P10_METRIC_TOL or not same):
+            fail(f"[p10 update] {name}: the 2-rank update disagrees with the single process")
+
+    # (c), (d) the driven paths
+    drive = {}
+    for name in r0["drive"]:
+        d = [r["drive"][name] for r in ranks]
+        for r in d:
+            if not (r["identical"] and r["finite"]):
+                fail(f"[p10 {name}] rank {r['rank']}: params identical {r['identical']}, "
+                     f"finite metrics {r['finite']}")
+            for k in ("step", "episodes", "num_updates", "cursor", "size", "updates"):
+                if r[k] != d[0][k]:
+                    fail(f"[p10 {name}] {k} differs across the ranks: {[x[k] for x in d]}")
+            if r["metrics"] != d[0]["metrics"]:
+                fail(f"[p10 {name}] the block metrics differ across the ranks")
+        if sum(d[0]["updates"]) == 0:
+            fail(f"[p10 {name}] the blocks ran no update")
+        n_timed = P10_TIMED_BLOCKS if name == "qmix_rnn_3m" else 1
+        upd_timed = sum(d[0]["updates"][:n_timed])
+        per_update = {k: [r["launches"][k] / max(upd_timed, 1) for r in d]
+                      for k in ("gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw")}
+        recurrent = name in ("qmix_rnn_3m", "vdn_rnn_seq_3m", "maddpg_rnn_sl")
+        for r in d:
+            for k in ("gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw"):
+                if recurrent and r["launches"][k] <= 0:
+                    fail(f"[p10 {name}] {k} was not launched on rank {r['rank']}")
+            for k in ("gru_seq_fwd_l2", "gru_seq_bwd_l2", "lambda_returns") + (
+                    () if recurrent else ("gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw")):
+                if r["launches"][k]:
+                    fail(f"[p10 {name}] {k} launched {r['launches'][k]} times on rank "
+                         f"{r['rank']}, a path that must not take it")
+        block_s = [max(r["block_walls"][i] for r in d) for i in range(n_timed)]
+        sps = d[0]["steps_per_block"] * n_timed / sum(block_s)
+        drive[name] = dict(ranks=d, env_steps_per_s=sps, block_s=block_s,
+                           launches_per_update=per_update, launches=d[0]["launches"])
+        log(f"[p10 {name}] {DP_WORLD} ranks x {d[0]['local_envs']} envs; warm-up "
+            f"{d[0]['warmup_iters']} iterations ({max(r['setup_s'] for r in d):.1f} s incl. "
+            f"init); blocks {[round(w, 3) for w in block_s]} s (slower rank) with "
+            f"{d[0]['updates']} updates; global env-steps/s {sps:.1f}; step {d[0]['step']}, "
+            f"episodes {d[0]['episodes']}, cursor {d[0]['cursor']}, size {d[0]['size']} on "
+            f"every rank; params bitwise identical")
+        log(f"[p10 {name}] ring {[round(r['ring_mib'], 1) for r in d]} MiB and peak "
+            f"{[round(r['peak_gib'], 3) for r in d]} GiB by rank (rows "
+            f"{[r['rows'] for r in d]} of {d[0]['capacity']}); collectives "
+            f"{d[0]['comm_calls']} ({d[0]['comm_bytes']} bytes) in {n_timed} block(s); "
+            f"launches per update by rank {per_update}")
+    q = drive["qmix_rnn_3m"]
+    q["comm_ms_per_update"] = [r["comm_ms_per_update"] for r in q["ranks"]]
+    beside = ""
+    if recq_single is not None:
+        q["single_env_steps_per_s"] = single = recq_single["env_steps_per_s"]
+        beside = (f" against the single process's {single:.1f} in phase 6 "
+                  f"({q['env_steps_per_s'] / single:.2f}x)")
+    log(f"[p10 qmix_rnn_3m] {DP_WORLD} ranks {q['env_steps_per_s']:.1f} global env-steps/s"
+        f"{beside}; collectives {[round(x, 3) for x in q['comm_ms_per_update']]} ms per "
+        f"update by rank (a block with each between synchronizes); spawn to results "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(commit=sorted(P10_COMMITS), update=upd, drive=drive)
+
+
+def check_offpolicy_resume():
+    """``qmix_rnn_3m`` in one process (the ring cut to P10_RESUME_BUFFER
+    episodes): blocks until updates run, a save, a restore into another
+    seed's init, one more block from both; the runners compared with the
+    ring's scratch row cleared (the rows of envs whose episode did not end
+    all write it, and which write lands is not specified on the card)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cleanmarl_tpu_torch.core.checkpoint import Checkpointer
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+
+    def clear_scratch(runner):
+        for x in tree_leaves(runner.ring.data) + [runner.ring.length]:
+            x[-1] = 0
+        return runner
+    mod, cfg, _ = _p10_recipe("qmix_rnn_3m", "cuda", buffer_size=P10_RESUME_BUFFER)
+    init, train_block, _, _ = mod.make_train(cfg)
+    runner = init(torch.Generator("cuda").manual_seed(0))
+    while runner.num_updates == 0:
+        runner, _ = train_block(runner)
+    work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
+    try:
+        ckpt = Checkpointer(work)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(runner.step, runner, wait=True)
+        save_s = time.perf_counter() - t0
+        step_dir = os.path.join(work, str(runner.step))
+        size = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        t0 = time.perf_counter()
+        restored = ckpt.restore(init(torch.Generator("cuda").manual_seed(1)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    same, differ = compare_runners(restored, runner, "restored off-policy runner")
+    if not same:
+        fail(f"the restored off-policy runner differs from the saved one: {differ}")
+    a, ma = train_block(runner)
+    b, mb = train_block(restored)
+    ma, mb = to_host(ma), to_host(mb)
+    bitwise, differ = compare_runners(clear_scratch(b), clear_scratch(a), "resumed block")
+    if bitwise and ma != mb:
+        fail(f"resumed off-policy block's metrics differ: {ma} vs {mb}")
+    state = ("bitwise identical" if bitwise else
+             f"within {RESUME_TOL}, not bitwise at {differ}")
+    log(f"[p10 resume] qmix_rnn_3m ({cfg.num_envs} envs, ring of {cfg.buffer_size} episodes) "
+        f"at step {runner.step}: {size / 2**20:.2f} MiB, save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s; resumed block ({b.num_updates - runner.num_updates} updates) "
+        f"{state} but for the ring's scratch row")
+    return dict(size_mib=size / 2**20, save_s=save_s, restore_s=restore_s, step=runner.step,
+                bitwise=bitwise, differ=differ)
+
+
+def check_offpolicy_cli():
+    """A 2-process QMIX CLI cluster (qmix_spread's widths) that saves, and a
+    resumed cluster that prints ``resumed from step N`` on rank 0 only and
+    ends at its total."""
+    import shutil
+    import tempfile
+
+    from cleanmarl_tpu_torch.distributed import multihost
+
+    work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
+    ckpt = os.path.join(work, "ckpt")
+
+    def cluster(total, resume):
+        port = multihost.free_port()
+        return [P10_CLI + ["--total_timesteps", str(total), "--checkpoint_dir", ckpt,
+                           "--checkpoint_every", str(P10_CLI_STEPS[0]),
+                           "--resume", str(resume).lower(),
+                           "--coordinator_address", f"localhost:{port}",
+                           "--num_processes", str(DP_WORLD), "--process_id", str(i)]
+                for i in range(DP_WORLD)]
+    try:
+        t0 = time.perf_counter()
+        outs = run_procs(cluster(P10_CLI_STEPS[0], False), module="qmix")
+        t1 = time.perf_counter()
+        saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+        files = sorted(os.listdir(os.path.join(ckpt, str(P10_CLI_STEPS[0]))))
+        outs2 = run_procs(cluster(P10_CLI_STEPS[1], True), module="qmix")
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if "[dist] 2 ranks, backend gloo" not in outs[0] or "[QMIX]" in outs[1]:
+        fail(f"2-process QMIX CLI: rank 0 must print alone:\n{outs[0][-1500:]}")
+    if saved != [P10_CLI_STEPS[0]] or files != ["meta.json", "rank0.pt", "rank1.pt"]:
+        fail(f"2-process QMIX CLI saved steps {saved}, files {files}")
+    want = f"[QMIX] resumed from step {P10_CLI_STEPS[0]}"
+    if want not in outs2[0] or "resumed" in outs2[1]:
+        fail(f"resumed QMIX cluster: {want!r} must print on rank 0 only:\n{outs2[0][-1500:]}")
+    steps = [int(x) for x in re.findall(r"\[QMIX\] step=(\d+)", outs2[0])]
+    if not steps or steps[0] <= P10_CLI_STEPS[0] or steps[-1] != P10_CLI_STEPS[1]:
+        fail(f"resumed QMIX cluster's steps {steps}")
+    log(f"[p10 cli] saved {saved} ({files}); {want}; resumed cluster steps {steps}; clusters "
+        f"{t1 - t0:.1f} s and {t2 - t1:.1f} s")
+    return dict(saved=saved, resumed_steps=steps, walls=[t1 - t0, t2 - t1])
+
+
+def check_dp_ranks(world):
+    """``--dp_ranks``: phase 10's rank checks (commit, one-step updates, the
+    driven paths) over ``world`` ranks, one a card when there are as many
+    cards (nccl), then recurrent QMIX and FACMAC on 3m through the CLI
+    with ``--use_mesh`` (one rank per visible card)."""
+    global DP_WORLD
+    DP_WORLD = world
+    check_offpolicy_dp(None)
+    for mod, batch in (("qmix_rnn", "32"), ("facmac", "64")):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", f"cleanmarl_tpu_torch.algos.{mod}",
+                            "--env_type", "smaclite", "--env_name", "3m", "--num_envs", "64",
+                            "--buffer_size", "5000", "--batch_size", batch,
+                            "--max_updates_per_iter", "8", "--log_interval", "50",
+                            "--total_timesteps", "9600", "--eval_steps", "9600",
+                            "--use_mesh", "true", "--seed", "0"],
+                           capture_output=True, text=True, timeout=600, cwd=ROOT)
+        lines = (p.stdout + p.stderr).strip().splitlines()
+        for line in [x for x in lines if x.startswith("[dist]")] + lines[-4:]:
+            log(f"[mesh {mod}] {line}")
+        if p.returncode != 0:
+            fail(f"{mod} --use_mesh exited {p.returncode}")
+        log(f"[mesh {mod}] rc 0 in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write all results to this JSON file")
+    ap.add_argument("--dp_ranks", type=int, default=0,
+                    help="only build the kernels and run phase 10's rank checks over this many "
+                         "ranks (one a card: nccl) and the --use_mesh CLIs; no result line")
     args = ap.parse_args()
 
     import torch
@@ -2543,6 +3163,10 @@ def main():
     for name, info in built.items():
         for kernel, usage in ptxas_usage(info["ptxas"]):
             log(f"[build] {name}: {kernel}: {usage}")
+    if args.dp_ranks:
+        check_dp_ranks(args.dp_ranks)
+        log(f"[dp_ranks] done in {time.perf_counter() - t_start:.1f} s")
+        return
 
     # phase 2: kernels vs plain versions, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2559,6 +3183,7 @@ def main():
     check_paths7_shapes(results)
     check_paths8_shapes(results)
     check_paths9_shapes(results)
+    check_paths10_shapes(results)
 
     # phase 3: the main path
     check_update_against_cpu()
@@ -2622,11 +3247,21 @@ def main():
     dp_cli = check_dp_cli()
     log(f"[dp-cli] in {lap_s()}; phase 9 in {time.perf_counter() - t9:.1f} s")
 
+    # phase 10: data-parallel QMIX, VDN, recurrent Q, MADDPG and FACMAC
+    t10 = lap = time.perf_counter()
+    offpolicy_dp = check_offpolicy_dp(recq["qmix_rnn_3m"])
+    log(f"[p10] two ranks (commit, updates, driven paths) in {lap_s()}")
+    offpolicy_resume = check_offpolicy_resume()
+    log(f"[p10 resume] in {lap_s()}")
+    offpolicy_cli = check_offpolicy_cli()
+    log(f"[p10 cli] in {lap_s()}; phase 10 in {time.perf_counter() - t10:.1f} s")
+
     by_path = {"mappo": main_path["launches"],
                **{k: v["launches"] for k, v in {**recq, **paths7, **paths8}.items()},
                "host_ippo": dict(dict.fromkeys(KERNEL_KEYS, 0), **host_route["launches"]),
                "mappo_3m_collisions": collisions["launches"],
-               "mappo_dp": data_parallel["launches"]}
+               "mappo_dp": data_parallel["launches"],
+               **{f"{k}_dp": v["launches"] for k, v in offpolicy_dp["drive"].items()}}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
                     launches_by_path={p: c.get(name, 0) for p, c in by_path.items()}, **r)
                for name, r in results.items()]
@@ -2638,7 +3273,9 @@ def main():
                            recurrent_q_routes=rq_routes, recurrent_q=recq, paths7=paths7,
                            env_steps=env_steps, paths8=paths8, host_route=host_route,
                            collisions=collisions, resume=resume,
-                           data_parallel=data_parallel, dp_cli=dp_cli),
+                           data_parallel=data_parallel, dp_cli=dp_cli,
+                           offpolicy_dp=offpolicy_dp, offpolicy_resume=offpolicy_resume,
+                           offpolicy_cli=offpolicy_cli),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

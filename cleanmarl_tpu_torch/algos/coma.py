@@ -363,13 +363,9 @@ def make_train(cfg: COMAConfig, env=None):
                 mu, std = dp.global_mean_std(returns.mean(dim=-1))
                 returns = (returns - mu) / (std + 1e-8)
 
-        def share(x):
-            """This rank's share of the mean over every rank's elements."""
-            return x.mean() if world == 1 else x.sum() / (x.numel() * world)
-
         def critic_loss_fn(p):
             q = critic_q(p, traj["state"], traj["obs"], traj["action"])
-            return share(torch.square(taken(q, traj["action"]) - returns)), ()
+            return dp.mean_share(torch.square(taken(q, traj["action"]) - returns)), ()
 
         critic_params, c_opt = runner.critic_params, runner.critic_opt
         for _ in range(max(1, cfg.critic_epochs)):
@@ -394,8 +390,8 @@ def make_train(cfg: COMAConfig, env=None):
                 mu, std = dp.global_mean_std(adv)
                 adv = (adv - mu) / (std + 1e-8)
             entropy = -torch.sum(pi * log_pi, dim=-1) / A    # the reference's mean over A
-            ent = share(entropy)
-            pg = share(taken(log_pi, traj["action"]) * adv)
+            ent = dp.mean_share(entropy)
+            pg = dp.mean_share(taken(log_pi, traj["action"]) * adv)
             return -pg - ent_coef * ent, (ent,)
 
         a_loss, (entropy,), a_grads = value_and_grad(actor_loss_fn, runner.actor_params)
@@ -448,18 +444,15 @@ def make_train(cfg: COMAConfig, env=None):
 
 
 def train(cfg: COMAConfig, env=None, logger=None):
-    """``--use_mesh`` on more than one card spawns one rank per card
-    (``distributed/multihost.py``) and returns (None, rank 0's last eval
-    metrics); the env is then built from the config in every rank."""
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
     from cleanmarl_tpu_torch.distributed import multihost
 
-    ranks = multihost.mesh_ranks(cfg)
-    if ranks > 1:
-        if env is not None or logger is not None:
-            raise ValueError("--use_mesh builds the env and logger in every rank: "
-                             "pass neither")
-        return multihost.spawn_mesh(train, cfg, ranks)
+    spawned = multihost.spawn_if_mesh(train, cfg, env, logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         "COMA", cfg, init, train_block, eval_fn,

@@ -17,6 +17,13 @@ MADDPG-style actor with QMIX-style monotonic mixing of per-agent utilities
 Feed-forward only, as in the JAX package: no kernel on this path. The
 update takes its Gumbel noise as an argument (``maddpg.py``).
 
+In a process group (``distributed/dp.py``) each rank steps ``num_envs /
+world`` envs and holds its rows of the episode ring, and an update takes
+this rank's ``batch_size / world`` episodes of rank 0's sample and noise,
+as MADDPG's does: global mask sum and reward statistics, each loss the
+rank's sum over the global count, the critic's and then the actor's
+gradients summed over the ranks before Adam.
+
     python -m cleanmarl_tpu_torch.algos.facmac --env_type mpe \
         --env_name simple_speaker_listener_v4 --num_envs 32    # on the card
     ... --device cpu                                           # on the CPU
@@ -41,8 +48,9 @@ from cleanmarl_tpu_torch.core.evaluation import make_evaluator
 from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
-from cleanmarl_tpu_torch.core.rewards import standardize
+from cleanmarl_tpu_torch.core.rewards import masked_count
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.base import categorical
 from cleanmarl_tpu_torch.envs.external import as_vec
@@ -89,8 +97,8 @@ class FACMACConfig:
     wnb_project: str = ""
     wnb_entity: str = ""
     profile_dir: str = ""            # torch.profiler trace of block 1
-    use_mesh: bool = False           # one card only: the DP path is ROADMAP A8
-    coordinator_address: str = ""    # one rank only: the DP path is ROADMAP A8
+    use_mesh: bool = False           # one rank per visible card (distributed/)
+    coordinator_address: str = ""    # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -151,7 +159,10 @@ def make_train(cfg: FACMACConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = as_vec(env, cfg.num_envs)
+    rank, world = dp.rank_world()
+    N = dp.check_layout(cfg.num_envs, 1, world)     # this rank's envs
+    dp.check_split(cfg.batch_size, world, "batch_size")
+    vec = as_vec(env, N)
     actor_opt = make_optimizer(cfg.optimizer, cfg.learning_rate_actor, cfg.clip_gradients)
     critic_opt = make_optimizer(cfg.optimizer, cfg.learning_rate_critic, cfg.clip_gradients)
     n_slots = cadence.num_slots(cfg.max_updates_per_iter, cfg.num_envs)
@@ -184,10 +195,10 @@ def make_train(cfg: FACMACConfig, env=None):
             target_actor=tree_map(torch.clone, actor_params),
             target_critic=tree_map(torch.clone, critic_params),
             actor_opt=actor_opt.init(actor_params), critic_opt=critic_opt.init(critic_params),
-            ring=EpisodeBuffer.create(cfg.buffer_size, env.episode_limit, rec),
-            acc=EpisodeAccumulator.create(cfg.num_envs, env.episode_limit, rec),
+            ring=EpisodeBuffer.create(cfg.buffer_size, env.episode_limit, rec, rank, world),
+            acc=EpisodeAccumulator.create(N, env.episode_limit, rec),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0, episodes=0,
+            stats=EpisodeStats.create(N, device), step=0, episodes=0,
             update_debt=0, last_actor_loss=zero, last_critic_loss=zero.clone(),
             last_actor_gnorm=zero.clone(), last_critic_gnorm=zero.clone(), num_updates=0,
             generator=generator)
@@ -198,15 +209,12 @@ def make_train(cfg: FACMACConfig, env=None):
         actor grad norm, critic grad norm)."""
         g_target, g_fresh = noise
         with torch.no_grad():
-            msum = torch.clamp(torch.sum(mask), min=1.0)
             next_logits = actor_logits(runner.target_actor, batch["next_obs"],
                                        batch["next_avail"])
             a_next = gumbel_softmax(next_logits, g_target, cfg.gumbel_tau, hard=True)
             qtot_next = q_tot(runner.target_critic, batch["next_obs"], a_next,
                               batch["next_state"])
-            reward = batch["reward"]
-            if cfg.normalize_reward:
-                reward = standardize(reward, mask)
+            reward, msum = masked_count(batch["reward"], mask, cfg.normalize_reward)
             target = reward + cfg.gamma * (1.0 - batch["ended"].float()) * qtot_next
 
         def critic_loss_fn(p):
@@ -214,6 +222,7 @@ def make_train(cfg: FACMACConfig, env=None):
             return torch.sum(torch.square(target - qt) * mask) / msum, ()
 
         c_loss, _, c_grads = value_and_grad(critic_loss_fn, runner.critic_params)
+        c_grads, (c_loss,) = dp.all_reduce_sum([c_grads, [c_loss]])
         with torch.no_grad():
             c_gnorm = nets.global_norm(c_grads)
             critic_params, c_opt = critic_opt.update(c_grads, runner.critic_opt,
@@ -226,6 +235,7 @@ def make_train(cfg: FACMACConfig, env=None):
             return -torch.sum(qt * mask) / msum, ()
 
         a_loss, _, a_grads = value_and_grad(actor_loss_fn, runner.actor_params)
+        a_grads, (a_loss,) = dp.all_reduce_sum([a_grads, [a_loss]])
         with torch.no_grad():
             a_gnorm = nets.global_norm(a_grads)
             actor_params, a_opt = actor_opt.update(a_grads, runner.actor_opt,
@@ -281,13 +291,20 @@ def make_train(cfg: FACMACConfig, env=None):
 
     eval_fn = make_evaluator(env, cfg.num_eval_ep, greedy_policy)
     meta = {"update": update, "train_iter": train_iter, "draw_noise": draw_noise,
-            "steps_per_block": cfg.num_envs * cfg.log_interval}
+            "steps_per_block": cfg.num_envs * cfg.log_interval, "local_envs": N}
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: FACMACConfig, env=None, logger=None):
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    spawned = multihost.spawn_if_mesh(train, cfg, env, logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         "FACMAC", cfg, init, train_block, eval_fn,
@@ -296,6 +313,7 @@ def train(cfg: FACMACConfig, env=None, logger=None):
         steps_of=lambda r: r.step * cfg.num_envs,
         print_keys=("rollout/ep_reward", "train/critic_loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["FACMAC"],
     )
 
 

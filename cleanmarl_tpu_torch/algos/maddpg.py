@@ -25,6 +25,17 @@ from the runner's generator and ``meta["update"](runner, batch, mask,
 noise)`` only computes. An iteration is eager PyTorch on the device with
 one host sync, the count of episodes that ended (``add_step``).
 
+In a process group (``distributed/dp.py``) each rank steps ``num_envs /
+world`` envs (the global envs ``rank, rank + world, ...``) and holds its
+rows of the episode ring (global row ``i`` on rank ``i % world``); the
+update clock counts every rank's episodes. An update takes this rank's
+``batch_size / world`` episodes of rank 0's sample and its rows of the
+noise rank 0 draws at the full batch shape (on the card, the recurrent
+actor's K2, K3 and dw at the rank's rows); the mask sum and the reward
+statistics are every rank's, each loss is the rank's sum over the global
+count, and the critic's and then the actor's gradients are summed over
+the ranks before Adam. With one rank nothing is reduced.
+
     python -m cleanmarl_tpu_torch.algos.maddpg --env_type mpe \
         --env_name simple_speaker_listener_v4 --num_envs 32    # on the card
     ... --device cpu                                           # on the CPU
@@ -32,6 +43,7 @@ one host sync, the count of episodes that ended (``add_step``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -47,7 +59,8 @@ from cleanmarl_tpu_torch.core.evaluation import make_evaluator
 from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
-from cleanmarl_tpu_torch.core.rewards import standardize
+from cleanmarl_tpu_torch.core.rewards import masked_count
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.external import as_vec
 
@@ -89,8 +102,8 @@ class MADDPGConfig:
     wnb_project: str = ""
     wnb_entity: str = ""
     profile_dir: str = ""            # torch.profiler trace of block 1
-    use_mesh: bool = False           # one card only: the DP path is ROADMAP A8
-    coordinator_address: str = ""    # one rank only: the DP path is ROADMAP A8
+    use_mesh: bool = False           # one rank per visible card (distributed/)
+    coordinator_address: str = ""    # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -161,10 +174,9 @@ def example_record(env, device):
             "next_state": z(env.state_dim), "next_avail": z(n, A, dtype=torch.bool)}
 
 
-def draw_noise(generator: torch.Generator, batch):
-    """(g_target, g_fresh): an update's Gumbel noise, shaped like the
-    batch's one-hot actions."""
-    shape = batch["action"].shape
+def draw_noise(generator: torch.Generator, shape):
+    """(g_target, g_fresh): an update's Gumbel noise, of ``shape``: the
+    sampled batch's one-hot actions (B, T, n_agents, n_actions)."""
     return gumbel_noise(generator, shape), gumbel_noise(generator, shape)
 
 
@@ -174,7 +186,7 @@ def run_due_updates(cfg, runner, n_new: int, n_slots: int, update):
     batch (a synchronized env batch finishes many at once, so each
     crossing gets its own update, up to ``n_slots`` an iteration and the
     rest as debt), each on a fresh batch and fresh noise from the runner's
-    generator; then both targets' Polyak step, k steps in a row taken as
+    generator (rank 0's in a process group, split over the ranks); then both targets' Polyak step, k steps in a row taken as
     one with τ = 1 − (1 − τ)^k (float32, as the JAX package computes it)
     on the serviced-update clock. → runner with the new params, targets,
     Adam states, last losses and counters."""
@@ -187,7 +199,9 @@ def run_due_updates(cfg, runner, n_new: int, n_slots: int, update):
     r = runner
     for _ in range(n_run):
         batch, mask = runner.ring.sample(gen, cfg.batch_size)
-        a_p, c_p, a_o, c_o, a_l, c_l, a_g, c_g = update(r, batch, mask, draw_noise(gen, batch))
+        shape = (cfg.batch_size,) + tuple(batch["action"].shape[1:])
+        noise = dp.rank0_draw(lambda: draw_noise(gen, shape), 2, shape, mask.device)
+        a_p, c_p, a_o, c_o, a_l, c_l, a_g, c_g = update(r, batch, mask, noise)
         r = r.replace(actor_params=a_p, critic_params=c_p, actor_opt=a_o, critic_opt=c_o,
                       last_actor_loss=a_l, last_critic_loss=c_l, last_actor_gnorm=a_g,
                       last_critic_gnorm=c_g)
@@ -212,7 +226,10 @@ def make_train(cfg: MADDPGConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = as_vec(env, cfg.num_envs)
+    rank, world = dp.rank_world()
+    N = dp.check_layout(cfg.num_envs, 1, world)     # this rank's envs
+    dp.check_split(cfg.batch_size, world, "batch_size")
+    vec = as_vec(env, N)
     actor_opt = make_optimizer(cfg.optimizer, cfg.learning_rate_actor, cfg.clip_gradients)
     critic_opt = make_optimizer(cfg.optimizer, cfg.learning_rate_critic, cfg.clip_gradients)
     n_slots = cadence.num_slots(cfg.max_updates_per_iter, cfg.num_envs)
@@ -273,18 +290,19 @@ def make_train(cfg: MADDPGConfig, env=None):
             target_actor=tree_map(torch.clone, actor_params),
             target_critic=tree_map(torch.clone, critic_params),
             actor_opt=actor_opt.init(actor_params), critic_opt=critic_opt.init(critic_params),
-            ring=EpisodeBuffer.create(cfg.buffer_size, env.episode_limit, rec),
-            acc=EpisodeAccumulator.create(cfg.num_envs, env.episode_limit, rec),
+            ring=EpisodeBuffer.create(cfg.buffer_size, env.episode_limit, rec, rank, world),
+            acc=EpisodeAccumulator.create(N, env.episode_limit, rec),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
-            actor_h=torch.zeros((cfg.num_envs, n, H), device=device),
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0, episodes=0,
+            actor_h=torch.zeros((N, n, H), device=device),
+            stats=EpisodeStats.create(N, device), step=0, episodes=0,
             update_debt=0, last_actor_loss=zero, last_critic_loss=zero.clone(),
             last_actor_gnorm=zero.clone(), last_critic_gnorm=zero.clone(), num_updates=0,
             generator=generator)
 
     def update(runner, batch, mask, noise):
         """One critic and one actor step on ``batch`` (B, T_max, ...) with
-        step ``mask`` (B, T_max) and Gumbel ``noise`` → (actor_params,
+        step ``mask`` (B, T_max) and Gumbel ``noise``, this rank's rows of
+        the sampled batch and its noise → (actor_params,
         critic_params, actor_opt, critic_opt, actor loss, critic loss,
         actor grad norm, critic grad norm)."""
         g_target, g_fresh = noise
@@ -295,17 +313,15 @@ def make_train(cfg: MADDPGConfig, env=None):
                                                       batch["next_avail"])
             a_next = gumbel_softmax(next_logits, g_target, cfg.gumbel_tau, hard=True)
             q_next = critic_q(runner.target_critic, batch["next_state"], a_next)
-            reward = batch["reward"]
-            if cfg.normalize_reward:
-                reward = standardize(reward, mask)
+            reward, msum = masked_count(batch["reward"], mask, cfg.normalize_reward)
             target = reward + cfg.gamma * (1.0 - batch["ended"].float()) * q_next
-            msum = torch.clamp(torch.sum(mask), min=1.0)
 
         def critic_loss_fn(p):
             q = critic_q(p, batch["state"], batch["action"])
             return torch.sum(torch.square(target - q) * mask) / msum, ()
 
         c_loss, _, c_grads = value_and_grad(critic_loss_fn, runner.critic_params)
+        c_grads, (c_loss,) = dp.all_reduce_sum([c_grads, [c_loss]])
         with torch.no_grad():
             c_gnorm = nets.global_norm(c_grads)
             critic_params, c_opt = critic_opt.update(c_grads, runner.critic_opt,
@@ -322,6 +338,7 @@ def make_train(cfg: MADDPGConfig, env=None):
             return -torch.sum(q_all * mask) / msum, ()
 
         a_loss, _, a_grads = value_and_grad(actor_loss_fn, runner.actor_params)
+        a_grads, (a_loss,) = dp.all_reduce_sum([a_grads, [a_loss]])
         with torch.no_grad():
             a_gnorm = nets.global_norm(a_grads)
             actor_params, a_opt = actor_opt.update(a_grads, runner.actor_opt,
@@ -379,13 +396,22 @@ def make_train(cfg: MADDPGConfig, env=None):
     eval_fn = make_evaluator(env, cfg.num_eval_ep, greedy_policy,
                              init_carry=lambda m: torch.zeros((m, n, H), device=device))
     meta = {"update": update, "train_iter": train_iter, "draw_noise": draw_noise,
-            "steps_per_block": cfg.num_envs * cfg.log_interval, "gru_impl": gru_impl}
+            "steps_per_block": cfg.num_envs * cfg.log_interval, "gru_impl": gru_impl,
+            "local_envs": N}
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: MADDPGConfig, env=None, logger=None, algo_name: str = "MADDPG"):
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    spawned = multihost.spawn_if_mesh(functools.partial(train, algo_name=algo_name), cfg, env,
+                                      logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         algo_name, cfg, init, train_block, eval_fn,
@@ -394,6 +420,7 @@ def train(cfg: MADDPGConfig, env=None, logger=None, algo_name: str = "MADDPG"):
         steps_of=lambda r: r.step * cfg.num_envs,
         print_keys=("rollout/ep_reward", "train/critic_loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["MADDPG"],
     )
 
 

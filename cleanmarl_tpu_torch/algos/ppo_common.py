@@ -356,7 +356,7 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             w = mb.get("alive")
             if w is not None:
                 return (x * w).sum() / mb["count"]
-            return x.mean() if world == 1 else x.sum() / (x.numel() * world)
+            return dp.mean_share(x)
 
         def actor_loss_fn(actor_params, mb):
             logits = logits_seq(actor_params, mb["h0"], mb["obs"], mb["avail"],
@@ -518,19 +518,16 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
 
 def train(cfg: PPOConfig, env=None, centralized: bool = False,
           algo_name: str = "IPPO", logger=None):
-    """``--use_mesh`` on more than one card spawns one rank per card
-    (``distributed/multihost.py``) and returns (None, rank 0's last eval
-    metrics); the env is then built from the config in every rank."""
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
     from cleanmarl_tpu_torch.distributed import multihost
 
-    ranks = multihost.mesh_ranks(cfg)
-    if ranks > 1:
-        if env is not None or logger is not None:
-            raise ValueError("--use_mesh builds the env and logger in every rank: "
-                             "pass neither")
-        return multihost.spawn_mesh(functools.partial(
-            train, centralized=centralized, algo_name=algo_name), cfg, ranks)
+    spawned = multihost.spawn_if_mesh(functools.partial(
+        train, centralized=centralized, algo_name=algo_name), cfg, env, logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env, centralized, algo_name)
     return run_training(
         algo_name, cfg, init, train_block, eval_fn,

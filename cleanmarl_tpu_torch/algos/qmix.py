@@ -16,6 +16,16 @@ Here an iteration is eager PyTorch on the device with one host sync: the
 count of episodes that ended, read once by ``add_step``, from which the
 host runs exactly the updates that are due.
 
+In a process group (``distributed/dp.py``) each rank steps ``num_envs /
+world`` envs (the global envs ``rank, rank + world, ...``) and holds its
+rows of the episode ring (global row ``i`` on rank ``i % world``); every
+rank counts the episodes that ended on every rank, so the update clock is
+global. An update takes this rank's ``batch_size / world`` episodes of
+rank 0's sample; the mask sum (and ``normalize_reward``'s statistics) are
+every rank's, each loss is the rank's sum over the global count, and the
+gradients are summed over the ranks before Adam. With one rank nothing
+is reduced.
+
     python -m cleanmarl_tpu_torch.algos.qmix --env_type mpe \
         --env_name simple_spread_v3 --num_envs 32      # on the card
     ... --device cpu                                   # on the CPU
@@ -38,8 +48,9 @@ from cleanmarl_tpu_torch.core.evaluation import make_evaluator
 from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
-from cleanmarl_tpu_torch.core.rewards import standardize
+from cleanmarl_tpu_torch.core.rewards import masked_count
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.external import as_vec
 
@@ -85,8 +96,8 @@ class QMIXConfig:
     wnb_project: str = ""
     wnb_entity: str = ""
     profile_dir: str = ""            # torch.profiler trace of block 1
-    use_mesh: bool = False           # one card only: the DP path is ROADMAP A8
-    coordinator_address: str = ""    # one rank only: the DP path is ROADMAP A8
+    use_mesh: bool = False           # one rank per visible card (distributed/)
+    coordinator_address: str = ""    # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -125,7 +136,10 @@ def make_train(cfg: QMIXConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = as_vec(env, cfg.num_envs)
+    rank, world = dp.rank_world()
+    N = dp.check_layout(cfg.num_envs, 1, world)     # this rank's envs
+    dp.check_split(cfg.batch_size, world, "batch_size")
+    vec = as_vec(env, N)
     opt = make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.clip_gradients)
     eps_duration = cfg.exploration_fraction * cfg.total_timesteps
     n_slots = cadence.num_slots(cfg.max_updates_per_iter, cfg.num_envs)
@@ -159,21 +173,19 @@ def make_train(cfg: QMIXConfig, env=None):
             params=params, target_params=tree_map(torch.clone, params),
             opt_state=opt.init(params),
             ring=EpisodeBuffer.create(cfg.buffer_size, env.episode_limit,
-                                      example_record()),
-            acc=EpisodeAccumulator.create(cfg.num_envs, env.episode_limit,
-                                          example_record()),
+                                      example_record(), rank, world),
+            acc=EpisodeAccumulator.create(N, env.episode_limit, example_record()),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0, episodes=0,
+            stats=EpisodeStats.create(N, device), step=0, episodes=0,
             update_debt=0, last_loss=zero, last_gnorm=zero.clone(), num_updates=0,
             generator=generator)
 
     def update(params, target_params, opt_state, batch, mask):
         """One TD step on ``batch`` (B, T_max, ...) with step ``mask`` (B,
-        T_max) → (params, opt_state, loss, grad norm)."""
+        T_max), this rank's rows of the sampled batch → (params, opt_state,
+        loss, grad norm)."""
         with torch.no_grad():
-            reward = batch["reward"]
-            if cfg.normalize_reward:
-                reward = standardize(reward, mask)
+            reward, count = masked_count(batch["reward"], mask, cfg.normalize_reward)
             if cfg.memefficient:
                 # the wrapped last row is cut by has_next
                 next_obs = torch.roll(batch["obs"], -1, dims=1)
@@ -203,9 +215,10 @@ def make_train(cfg: QMIXConfig, env=None):
             q_taken = torch.gather(q, -1, batch["action"][..., None])[..., 0]
             qtot = nets.mixer_apply(p["mixer"], q_taken, batch["state"])
             err = torch.square(target - qtot) * mask
-            return torch.sum(err) / torch.clamp(torch.sum(mask), min=1.0), ()
+            return torch.sum(err) / count, ()
 
         loss, _, grads = value_and_grad(loss_fn, params)
+        grads, (loss,) = dp.all_reduce_sum([grads, [loss]])
         with torch.no_grad():
             gnorm = nets.global_norm(grads)
             params, opt_state = opt.update(grads, opt_state, params)
@@ -288,13 +301,20 @@ def make_train(cfg: QMIXConfig, env=None):
 
     eval_fn = make_evaluator(env, cfg.num_eval_ep, greedy_policy)
     meta = {"update": update, "train_iter": train_iter,
-            "steps_per_block": cfg.num_envs * cfg.log_interval}
+            "steps_per_block": cfg.num_envs * cfg.log_interval, "local_envs": N}
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: QMIXConfig, env=None, logger=None):
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    spawned = multihost.spawn_if_mesh(train, cfg, env, logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         "QMIX", cfg, init, train_block, eval_fn,
@@ -303,6 +323,7 @@ def train(cfg: QMIXConfig, env=None, logger=None):
         steps_of=lambda r: r.step * cfg.num_envs,
         print_keys=("rollout/ep_reward", "train/loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["QMIX"],
     )
 
 

@@ -30,6 +30,18 @@ one compiled scan. Here an iteration is eager PyTorch on the device with
 one host sync: the counts that ``add_step`` reads (episodes, or chunks
 and episodes), from which the host runs exactly the updates that are due.
 
+In a process group (``distributed/dp.py``) each rank steps ``num_envs /
+world`` envs (the global envs ``rank, rank + world, ...``) with their GRU
+carries and holds its rows of the ring (global row ``i`` on rank ``i %
+world``); the counts that ``add_step`` reads are every rank's, so the
+update clock is global. An update takes this rank's ``batch_size /
+world`` rows of rank 0's sample, so its sequence recomputes run at the
+rank's rows (on the card, K2, K3 and dw at ``batch_size / world ·
+n_agents`` rows); the mask sum and the reward statistics are every
+rank's, each loss is the rank's sum over the global count, and the
+gradients are summed over the ranks before Adam. With one rank nothing
+is reduced.
+
     python -m cleanmarl_tpu_torch.algos.qmix_rnn --env_type smaclite \
         --env_name 3m --num_envs 64                    # on the card
     ... --device cpu                                   # on the CPU
@@ -53,8 +65,9 @@ from cleanmarl_tpu_torch.core.evaluation import make_evaluator
 from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
-from cleanmarl_tpu_torch.core.rewards import standardize
+from cleanmarl_tpu_torch.core.rewards import masked_count, standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.external import as_vec
 
@@ -104,8 +117,8 @@ class RecurrentQConfig:
     wnb_project: str = ""
     wnb_entity: str = ""
     profile_dir: str = ""            # torch.profiler trace of block 1
-    use_mesh: bool = False           # one card only: the DP path is ROADMAP A8
-    coordinator_address: str = ""    # one rank only: the DP path is ROADMAP A8
+    use_mesh: bool = False           # one rank per visible card (distributed/)
+    coordinator_address: str = ""    # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -176,7 +189,10 @@ def make_train(cfg: RecurrentQConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = as_vec(env, cfg.num_envs)
+    rank, world = dp.rank_world()
+    N = dp.check_layout(cfg.num_envs, 1, world)     # this rank's envs
+    dp.check_split(cfg.batch_size, world, "batch_size")
+    vec = as_vec(env, N)
     opt = make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.clip_gradients)
     eps_duration = cfg.exploration_fraction * cfg.total_timesteps
     n_slots = cadence.num_slots(cfg.max_updates_per_iter, cfg.num_envs)
@@ -207,21 +223,20 @@ def make_train(cfg: RecurrentQConfig, env=None):
                                               cfg.hyper_dim, device=device)
         env_state, ts = vec.reset(generator)
         if use_seq:
-            ring = SequenceBuffer.create(cfg.buffer_size, cfg.seq_length, example_record())
-            acc = SequenceAccumulator.create(cfg.num_envs, cfg.seq_length,
-                                             example_record())
+            ring = SequenceBuffer.create(cfg.buffer_size, cfg.seq_length, example_record(),
+                                         rank, world)
+            acc = SequenceAccumulator.create(N, cfg.seq_length, example_record())
         else:
             ring = EpisodeBuffer.create(cfg.buffer_size, env.episode_limit,
-                                        example_record())
-            acc = EpisodeAccumulator.create(cfg.num_envs, env.episode_limit,
-                                            example_record())
+                                        example_record(), rank, world)
+            acc = EpisodeAccumulator.create(N, env.episode_limit, example_record())
         zero = torch.zeros((), device=device)
         return RecQRunnerState(
             params=params, target_params=tree_map(torch.clone, params),
             opt_state=opt.init(params), ring=ring, acc=acc, env_state=env_state,
             obs=ts.obs, state=ts.state, avail=ts.avail,
-            h=nets.rnn_initial_state((cfg.num_envs, n), H, device),
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0, episodes=0,
+            h=nets.rnn_initial_state((N, n), H, device),
+            stats=EpisodeStats.create(N, device), step=0, episodes=0,
             update_debt=0, last_loss=zero, last_gnorm=zero.clone(), num_updates=0,
             generator=generator)
 
@@ -232,6 +247,7 @@ def make_train(cfg: RecurrentQConfig, env=None):
 
     def step_params(params, opt_state, loss_fn):
         loss, _, grads = value_and_grad(loss_fn, params)
+        grads, (loss,) = dp.all_reduce_sum([grads, [loss]])
         with torch.no_grad():
             gnorm = nets.global_norm(grads)
             params, opt_state = opt.update(grads, opt_state, params)
@@ -239,13 +255,12 @@ def make_train(cfg: RecurrentQConfig, env=None):
 
     def update(params, target_params, opt_state, batch, mask):
         """One TD step on sampled episodes ``batch`` (B, T_max, ...) with
-        step ``mask`` (B, T_max) → (params, opt_state, loss, grad norm)."""
+        step ``mask`` (B, T_max), this rank's rows of the sampled batch →
+        (params, opt_state, loss, grad norm)."""
         with torch.no_grad():
             tm = time_major(batch)
             mask_tm = mask.t()
-            reward = tm["reward"]
-            if cfg.normalize_reward:
-                reward = standardize(reward, mask_tm)
+            reward, count = masked_count(tm["reward"], mask_tm, cfg.normalize_reward)
             h0 = nets.rnn_initial_state(tm["obs"].shape[1:3], H, device)
             q_next = nets.rnn_seq_eval_next(target_params["q"], h0, tm["obs"],
                                             tm["next_obs"], dtype=mm_dtype, impl=gru_impl)
@@ -259,12 +274,13 @@ def make_train(cfg: RecurrentQConfig, env=None):
             q_taken = torch.gather(q, -1, tm["action"][..., None])[..., 0]   # (T, B, n)
             team = mix(p, q_taken, tm["state"])
             err = torch.square(target - team) * mask_tm
-            return torch.sum(err) / torch.clamp(torch.sum(mask_tm), min=1.0), ()
+            return torch.sum(err) / count, ()
 
         return step_params(params, opt_state, loss_fn)
 
     def update_seq(params, target_params, opt_state, batch):
-        """One TD step on sampled chunks ``batch`` (B, L, ...): zero-start
+        """One TD step on sampled chunks ``batch`` (B, L, ...), this rank's
+        rows of the sampled batch: zero-start
         hidden states warmed over the first ``burn_in`` steps without
         gradient, the VDN TD loss on the rest → (params, opt_state, loss,
         grad norm)."""
@@ -292,7 +308,7 @@ def make_train(cfg: RecurrentQConfig, env=None):
             _, q = nets.rnn_seq_apply(p["q"], h_u, tm["obs"][bi:], dtype=mm_dtype,
                                       impl=gru_impl)
             q_taken = torch.gather(q, -1, tm["action"][bi:][..., None])[..., 0]
-            return torch.mean(torch.square(target - q_taken.sum(dim=-1))), ()
+            return dp.mean_share(torch.square(target - q_taken.sum(dim=-1))), ()
 
         return step_params(params, opt_state, loss_fn)
 
@@ -384,13 +400,21 @@ def make_train(cfg: RecurrentQConfig, env=None):
     eval_fn = make_evaluator(env, cfg.num_eval_ep, greedy_policy,
                              init_carry=lambda m: nets.rnn_initial_state((m, n), H, device))
     meta = {"update": update, "update_seq": update_seq, "train_iter": train_iter,
-            "steps_per_block": cfg.num_envs * cfg.log_interval, "gru_impl": gru_impl}
+            "steps_per_block": cfg.num_envs * cfg.log_interval, "gru_impl": gru_impl,
+            "local_envs": N}
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: RecurrentQConfig, env=None, logger=None):
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    spawned = multihost.spawn_if_mesh(train, cfg, env, logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         "VDN-RNN" if cfg.mixing == "vdn" else "QMIX-RNN", cfg, init, train_block, eval_fn,
@@ -399,6 +423,7 @@ def train(cfg: RecurrentQConfig, env=None, logger=None):
         steps_of=lambda r: r.step * cfg.num_envs,
         print_keys=("rollout/ep_reward", "train/loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["RECURRENT_Q"],
     )
 
 

@@ -11,6 +11,15 @@ each): one update of ``batch_size·num_envs`` transitions every
 transitions are stored. Both conditions are host integers, so an
 iteration never waits for the device.
 
+In a process group (``distributed/dp.py``) each rank steps ``num_envs /
+world`` envs (the global envs ``rank, rank + world, ...``) and holds its
+rows of the transition ring (global row ``i`` on rank ``i % world``;
+where the ranks divide ``num_envs`` and ``buffer_size`` every env's row
+is its own rank's). An update takes this rank's ``batch_size · num_envs
+/ world`` transitions of rank 0's sample, its loss the rank's sum over
+the global count, and the gradients are summed over the ranks before the
+clipping and Adam. With one rank nothing is reduced.
+
     python -m cleanmarl_tpu_torch.algos.vdn --env_type mpe \
         --env_name simple_spread_v3 --num_envs 32      # on the card
     ... --device cpu                                   # on the CPU
@@ -33,6 +42,7 @@ from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.external import as_vec
 from cleanmarl_tpu_torch.types import Transition
@@ -74,8 +84,8 @@ class VDNConfig:
     wnb_project: str = ""
     wnb_entity: str = ""
     profile_dir: str = ""               # torch.profiler trace of block 1
-    use_mesh: bool = False              # one card only: the DP path is ROADMAP A8
-    coordinator_address: str = ""       # one rank only: the DP path is ROADMAP A8
+    use_mesh: bool = False              # one rank per visible card (distributed/)
+    coordinator_address: str = ""       # host:port of a multi-process run
     num_processes: int = 1
     process_id: int = 0
     seed: int = 1
@@ -111,9 +121,12 @@ def make_train(cfg: VDNConfig, env=None):
     if env is None:
         env = registry.make(cfg.env_type, cfg.env_name, agent_ids=cfg.agent_ids,
                             env_family=cfg.env_family, device=device)
-    vec = as_vec(env, cfg.num_envs)
+    rank, world = dp.rank_world()
+    N = dp.check_layout(cfg.num_envs, 1, world)     # this rank's envs
+    vec = as_vec(env, N)
     opt = make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.clip_gradients)
     eff_batch = cfg.batch_size * cfg.num_envs
+    dp.check_split(eff_batch, world, "batch_size * num_envs")
     eps_duration = cfg.exploration_fraction * cfg.total_timesteps
     n, A = env.n_agents, env.n_actions
 
@@ -133,14 +146,15 @@ def make_train(cfg: VDNConfig, env=None):
         return VDNRunnerState(
             params=params, target_params=tree_map(torch.clone, params),
             opt_state=opt.init(params),
-            buffer=TransitionBuffer.create(cfg.buffer_size, example),
+            buffer=TransitionBuffer.create(cfg.buffer_size, example, rank, world),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
-            stats=EpisodeStats.create(cfg.num_envs, device), step=0,
+            stats=EpisodeStats.create(N, device), step=0,
             last_loss=zero, last_gnorm=zero.clone(), num_updates=0,
             generator=generator)
 
     def update(params, target_params, opt_state, batch: Transition):
-        """One TD step on a sampled batch → (params, opt_state, loss, grad norm)."""
+        """One TD step on this rank's rows of a sampled batch → (params,
+        opt_state, loss, grad norm)."""
         with torch.no_grad():
             reward = standardize(batch.reward) if cfg.normalize_reward else batch.reward
             q_next = nets.masked_q(nets.mlp_apply(target_params, batch.next_obs),
@@ -151,9 +165,10 @@ def make_train(cfg: VDNConfig, env=None):
         def loss_fn(p):
             q = nets.mlp_apply(p, batch.obs)
             q_taken = torch.gather(q, -1, batch.action[..., None])[..., 0]
-            return torch.mean(torch.square(target - q_taken.sum(dim=-1))), ()
+            return dp.mean_share(torch.square(target - q_taken.sum(dim=-1))), ()
 
         loss, _, grads = value_and_grad(loss_fn, params)
+        grads, (loss,) = dp.all_reduce_sum([grads, [loss]])
         with torch.no_grad():
             gnorm = nets.global_norm(grads)
             params, opt_state = opt.update(grads, opt_state, params)
@@ -220,13 +235,20 @@ def make_train(cfg: VDNConfig, env=None):
 
     eval_fn = make_evaluator(env, cfg.num_eval_ep, greedy_policy)
     meta = {"update": update, "train_iter": train_iter,
-            "steps_per_block": cfg.num_envs * cfg.log_interval}
+            "steps_per_block": cfg.num_envs * cfg.log_interval, "local_envs": N}
     return init, train_block, eval_fn, meta
 
 
 def train(cfg: VDNConfig, env=None, logger=None):
+    """``--use_mesh`` on more than one card trains on one spawned rank per
+    card and returns (None, rank 0's last eval metrics)
+    (``multihost.spawn_if_mesh``)."""
     from cleanmarl_tpu_torch.core.driver import run_training
+    from cleanmarl_tpu_torch.distributed import multihost
 
+    spawned = multihost.spawn_if_mesh(train, cfg, env, logger)
+    if spawned is not None:
+        return spawned
     init, train_block, eval_fn, meta = make_train(cfg, env)
     return run_training(
         "VDN", cfg, init, train_block, eval_fn,
@@ -235,6 +257,7 @@ def train(cfg: VDNConfig, env=None, logger=None):
         steps_of=lambda r: r.step * cfg.num_envs,
         print_keys=("rollout/ep_reward", "train/loss"),
         logger=logger,
+        data_field_dims=dp.DATA_FIELD_DIMS["VDN"],
     )
 
 

@@ -16,37 +16,66 @@ envs committed. ``cursor`` and ``size`` are host integers; they advance
 by the number of chunks committed, which ``add_step`` reads from the
 device once per call, with the number of episodes that ended: the one
 host sync of a recurrent-Q iteration.
+
+In a process group (``distributed/dp.py``) the ring holds this rank's
+rows of a ``capacity``-row global ring (global row ``i`` on rank ``i %
+world``), the accumulator this rank's envs, whose back-fill reads their
+own previous chunks. A commit gathers every rank's commit and end flags
+(the one sync), gives the committing envs their single-process
+destinations in global env order and sends each chunk to the owner of
+its row; nothing writes the scratch row. A sample takes rank 0's draw and
+fetches this rank's batch rows from their owners.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+from cleanmarl_tpu_torch.distributed import dp
 
 
 class SequenceBuffer:
-    def __init__(self, data: Any, cursor: int = 0, size: int = 0):
-        self.data = data          # leaves (capacity + 1, L, ...)
+    def __init__(self, data: Any, cursor: int = 0, size: int = 0,
+                 capacity: Optional[int] = None):
+        self.data = data          # leaves (rows + 1, L, ...)
         self.cursor = cursor
         self.size = size
-
-    @property
-    def capacity(self) -> int:
-        return tree_leaves(self.data)[0].shape[0] - 1
+        # global rows; this rank holds dp.owned_rows(capacity, rank, world)
+        self.capacity = tree_leaves(data)[0].shape[0] - 1 if capacity is None else capacity
 
     @staticmethod
-    def create(capacity: int, seq_length: int, example: Any) -> "SequenceBuffer":
+    def create(capacity: int, seq_length: int, example: Any, rank: int = 0,
+               world: int = 1) -> "SequenceBuffer":
         """``example``: one step's record, unbatched; the ring takes its
-        shapes, dtypes and device."""
+        shapes, dtypes and device. Rank ``rank`` of ``world`` holds its
+        rows of ``capacity``."""
+        rows = dp.owned_rows(capacity, rank, world) + 1
         return SequenceBuffer(tree_map(
-            lambda x: torch.zeros((capacity + 1, seq_length) + tuple(x.shape),
-                                  dtype=x.dtype, device=x.device), example))
+            lambda x: torch.zeros((rows, seq_length) + tuple(x.shape),
+                                  dtype=x.dtype, device=x.device), example),
+            capacity=capacity)
+
+    def shard(self, rank: int, world: int) -> "SequenceBuffer":
+        """Rank ``rank``'s rows of this single-process ring, and its scratch row."""
+        dev = tree_leaves(self.data)[0].device
+        rows = torch.cat([torch.arange(rank, self.capacity, world),
+                          torch.tensor([self.capacity])]).to(dev)
+        return SequenceBuffer(tree_map(lambda x: x[rows], self.data), self.cursor,
+                              self.size, self.capacity)
 
     def sample(self, generator, batch_size: int) -> Any:
         """→ records (B, L, ...), uniform over the stored chunks.
-        ``idx < size <= capacity``, so the scratch row is never read."""
+        ``idx < size <= capacity``, so the scratch row is never read. In a
+        process group, this rank's rows ``rank, rank + world, ...`` of rank
+        0's draw."""
+        world = dp.rank_world()[1]
+        if world > 1:
+            idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
+            return dp.move_rows(self.data, idx % world, idx // world,
+                                np.arange(batch_size) % world)
         dev = tree_leaves(self.data)[0].device
         idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
                             device=dev)
@@ -72,6 +101,13 @@ class SequenceAccumulator:
         dev = tree_leaves(example)[0].device
         return SequenceAccumulator(tree_map(zeros, example), tree_map(zeros, example),
                                    torch.zeros((num_envs,), dtype=torch.int64, device=dev))
+
+    def shard(self, rank: int, world: int) -> "SequenceAccumulator":
+        """Rank ``rank``'s envs of this single-process accumulator."""
+        def take(tree):
+            return tree_map(lambda x: dp.interleaved(x, rank, world), tree)
+        return SequenceAccumulator(take(self.store), take(self.prev),
+                                   dp.interleaved(self.t, rank, world))
 
     def add_step(self, ring: SequenceBuffer, record: Any,
                  ended: torch.Tensor) -> Tuple[int, int]:
@@ -111,23 +147,38 @@ class SequenceAccumulator:
         chunk = tree_map(chunk_of, self.prev, self.store)
 
         cap = ring.capacity
-        commit_i = commit.long()
-        offsets = torch.cumsum(commit_i, 0) - commit_i
-        dest = torch.where(commit, torch.remainder(ring.cursor + offsets, cap), cap)
+        rank, world = dp.rank_world()
+        if world == 1:
+            commit_i = commit.long()
+            offsets = torch.cumsum(commit_i, 0) - commit_i
+            dest = torch.where(commit, torch.remainder(ring.cursor + offsets, cap), cap)
 
-        # Every env that commits nothing writes the scratch row, so ``dest``
-        # repeats ``cap``; on CUDA an indexed assignment with repeated
-        # indices keeps one of the writes, unspecified which. That is
-        # harmless because nothing reads the scratch row (``sample`` draws
-        # below ``size``); the rows of committing envs are distinct.
-        def scatter(buf, c):
-            buf[dest] = c
-        tree_map(scatter, ring.data, chunk)
+            # Every env that commits nothing writes the scratch row, so
+            # ``dest`` repeats ``cap``; on CUDA an indexed assignment with
+            # repeated indices keeps one of the writes, unspecified which.
+            # That is harmless because nothing reads the scratch row
+            # (``sample`` draws below ``size``); the rows of committing envs
+            # are distinct.
+            def scatter(buf, c):
+                buf[dest] = c
+            tree_map(scatter, ring.data, chunk)
+            n_new, n_ended = torch.stack((commit_i.sum(), ended.long().sum())).tolist()
+        else:
+            flags = dp.gather_flags(commit, ended)                 # global envs, in order
+            commits = np.flatnonzero(flags[0])
+            n_new, n_ended = len(commits), int(flags[1].sum())
+            if n_new:
+                dest = (ring.cursor + np.arange(n_new)) % cap      # global rows
+                got = dp.move_rows(chunk, commits % world, commits // world, dest % world)
+                rows = torch.as_tensor(dest[dest % world == rank] // world, device=dev)
+
+                def scatter(buf, c):
+                    buf[rows] = c
+                tree_map(scatter, ring.data, got)
         self.prev = tree_map(lambda pv, c: torch.where(bcast(commit, c), c, pv),
                              self.prev, chunk)
         self.t = torch.where(commit, 0, t_new)
 
-        n_new, n_ended = torch.stack((commit_i.sum(), ended.long().sum())).tolist()
         ring.cursor = (ring.cursor + n_new) % cap
         ring.size = min(ring.size + n_new, cap)
         return n_new, n_ended

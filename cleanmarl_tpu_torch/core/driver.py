@@ -17,7 +17,7 @@ import torch
 
 from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.core.logger import Logger
-from cleanmarl_tpu_torch.distributed import dp, multihost
+from cleanmarl_tpu_torch.distributed import dp
 
 
 class _NullLogger:
@@ -60,10 +60,10 @@ def run_training(
     eval_fn: Callable,
     steps_per_block: int,
     eval_params: Callable[[Any], Any],
+    data_field_dims: Dict[str, int],
     steps_of: Optional[Callable[[Any], int]] = None,
     print_keys: Tuple[str, ...] = ("rollout/ep_reward",),
     logger: Optional[Logger] = None,
-    data_field_dims: Optional[Dict[str, int]] = None,
     phase_timer: Optional[Callable[[Any], Dict[str, float]]] = None,
 ) -> Tuple[Any, Dict[str, float]]:
     """Returns (final runner, last eval metrics).
@@ -72,16 +72,11 @@ def run_training(
     ``eval_steps``, ``seed``, ``verbose``, ``device``, ``checkpoint_dir``
     (enables checkpointing), ``checkpoint_every`` (env steps between
     saves), ``resume`` (restore the latest checkpoint before training),
-    ``profile_dir`` (trace block 1). A family without ``data_field_dims``
-    has no data-parallel path: more than one rank, or ``use_mesh`` over
-    more than one card, raises.
+    ``profile_dir`` (trace block 1). ``data_field_dims`` is the family's
+    table of per-env fields (``dp.DATA_FIELD_DIMS``), which a data-parallel
+    init leaves on each rank.
     """
     rank, world = dp.rank_world()
-    if data_field_dims is None and max(world, multihost.mesh_ranks(cfg)) > 1:
-        raise NotImplementedError(
-            f"{algo_name} has no data-parallel path in cleanmarl_tpu_torch yet: it "
-            f"runs on one rank (ROADMAP Queue A, A8: the off-policy families' "
-            f"replay sharded by capacity)")
     is_main = rank == 0
     device = resolve_device(getattr(cfg, "device", "cuda"))
     own_logger = logger is None

@@ -1,11 +1,10 @@
-"""Env-batch data parallelism over ``torch.distributed`` (port of
-``cleanmarl_tpu/distributed/dp.py``), for the on-policy families (MAPPO,
-IPPO, COMA).
+"""Data parallelism over ``torch.distributed`` (port of
+``cleanmarl_tpu/distributed/dp.py``) for all seven families.
 
 The JAX package shards the runner over a device mesh and lets XLA insert
 the collectives. Here each rank is one process that holds its own share
-of the envs and a full copy of the params; the families call the
-collectives themselves:
+of the envs and of the replay ring and a full copy of the params; the
+families call the collectives themselves:
 
 - **Env layout.** Global env ``j`` lives on rank ``j % world`` at local
   index ``j // world``. The JAX minibatches are contiguous env ranges;
@@ -13,6 +12,19 @@ collectives themselves:
   rank's share of minibatch ``i`` is its contiguous local range ``i``, so
   the per-rank update slices its envs as the single-process one does. It
   needs ``num_envs % (num_minibatches * world) == 0`` (``check_layout``).
+- **Ring layout.** The off-policy rings shard by capacity: global row
+  ``i`` lives on rank ``i % world`` at local index ``i // world``
+  (``owned_rows``, any capacity, divided by the ranks or not), and every
+  rank keeps its own scratch row. ``cursor`` and ``size`` are global host
+  integers, equal on every rank. A commit gathers the ranks' end flags
+  (``gather_flags``: the global order of ended envs), gives each finished
+  episode, chunk or transition its single-process destination and sends
+  it to the rank that owns that row (``move_rows``). A sample is drawn on
+  rank 0 from its generator, as the single process draws it
+  (``rank0_randint``), and each rank fetches batch rows ``rank, rank +
+  world, ...`` from their owners; MADDPG's and FACMAC's update noise is
+  drawn on rank 0 at the full batch shape and split the same way
+  (``rank0_draw``).
 - **Init.** Every rank runs ``init`` from its own generator
   (``rank_seed``: rank 0's is the single-process seed), so each rank's
   envs follow their own stream; then the
@@ -27,17 +39,24 @@ collectives themselves:
 With one rank every collective is skipped and the arithmetic is the
 single-process path's, bit for bit.
 
-``DATA_FIELD_DIMS`` is the JAX table of per-env runner fields. The
-off-policy entries keep their JAX meaning (their rings shard by
-capacity), but those families have no data-parallel path here yet
-(ROADMAP Queue A, A8). ``make_mesh``, ``runner_pspecs`` and
-``runner_shardings`` describe XLA shardings and have no counterpart.
+Transport: nccl takes every collective on the card. gloo all-reduces and
+broadcasts CUDA tensors through the host itself; the flags, the rows
+that ``move_rows`` sends (``all_to_all_single``) and the drawn indices
+and noise are staged through the host here (``_wire``), so the rows a
+commit or a sample moves cost a device→host copy on gloo.
+
+``DATA_FIELD_DIMS`` is the JAX table of per-env runner fields; a ring or
+accumulator in it shards by its own ``shard(rank, world)``.
+``make_mesh``, ``runner_pspecs`` and ``runner_shardings`` describe XLA
+shardings and have no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -90,34 +109,66 @@ def check_layout(num_envs: int, num_minibatches: int, world: int) -> int:
     return num_envs // world
 
 
+def check_split(count: int, world: int, what: str) -> int:
+    """→ this rank's rows of a sampled batch of ``count``; raises unless
+    the ranks divide it."""
+    if count % world:
+        raise ValueError(
+            f"{what}={count} must be a multiple of the {world} ranks: each rank takes "
+            f"every {world}-th row of a sampled batch")
+    return count // world
+
+
+def owned_rows(capacity: int, rank: int, world: int) -> int:
+    """Rows that rank ``rank`` holds of a ring of ``capacity`` global rows:
+    the rows ``i`` with ``i % world == rank``, at local index ``i // world``."""
+    return len(range(rank, capacity, world))
+
+
+def interleaved(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """Rows ``rank, rank + world, ...`` of ``x`` (axis 0)."""
+    return x[rank::world].clone()
+
+
 @dataclasses.dataclass
 class CommStats:
-    """Collectives this process issued: calls, float32 elements moved and,
-    when ``timed`` (the device synchronized around each call), seconds."""
+    """Collectives this process issued: calls, bytes sent and, when
+    ``timed`` (the device synchronized around each call), seconds."""
     timed: bool = False
     calls: int = 0
-    elements: int = 0
+    bytes: int = 0
     seconds: float = 0.0
 
     def reset(self, timed: bool = False) -> None:
-        self.timed, self.calls, self.elements, self.seconds = timed, 0, 0, 0.0
+        self.timed, self.calls, self.bytes, self.seconds = timed, 0, 0, 0.0
 
 
 # a process trains one family, so one record serves every collective
 COMM = CommStats()
 
 
-def _all_reduce(flat: torch.Tensor) -> None:
-    sync = COMM.timed and flat.is_cuda
+def _collective(run: Callable[[], Any], payload: torch.Tensor, device: torch.device) -> None:
+    """``run()``, one collective that sends ``payload``, counted in ``COMM``."""
+    sync = COMM.timed and device.type == "cuda"
     if sync:
-        torch.cuda.synchronize(flat.device)
+        torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    dist.all_reduce(flat)
+    run()
     if sync:
-        torch.cuda.synchronize(flat.device)
+        torch.cuda.synchronize(device)
     COMM.seconds += time.perf_counter() - t0
     COMM.calls += 1
-    COMM.elements += flat.numel()
+    COMM.bytes += payload.numel() * payload.element_size()
+
+
+def _all_reduce(flat: torch.Tensor) -> None:
+    _collective(lambda: dist.all_reduce(flat), flat, flat.device)
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where the backend takes it: on the host for gloo, else where
+    it is."""
+    return x.cpu() if dist.get_backend() == "gloo" else x
 
 
 def global_sum(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -154,6 +205,14 @@ def all_reduce_sum(trees: Sequence[Any]) -> List[Any]:
             i += x.numel()
         out.append(tree_unflatten(tree, new))
     return out
+
+
+def mean_share(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the mean over every rank's elements (each rank
+    holds as many): its sum over the global count, the mean with one rank.
+    Summed over the ranks (with the gradients) it is the global mean."""
+    world = rank_world()[1]
+    return x.mean() if world == 1 else x.sum() / (x.numel() * world)
 
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
@@ -195,13 +254,16 @@ def global_runner_init(init_fn, generator: torch.Generator, field_dims: Dict[str
 
 def shard_runner(runner, field_dims: Dict[str, int], rank: int, world: int):
     """Rank ``rank``'s share of a full single-process runner: along each
-    per-env field's env axis, the envs ``rank, rank + world, ...``. A 0-d
-    tensor in a per-env field is an additive partial sum (``EpisodeStats``
-    block sums): rank 0 keeps it, the others start at zero, so the sums
-    over the ranks are the full runner's. Replicated fields are shared;
-    the generator is copied."""
+    per-env field's env axis, the envs ``rank, rank + world, ...``; a ring
+    or an accumulator takes its own share (``shard``: ring rows by
+    ``owned_rows``, accumulator rows by env). A 0-d tensor in a per-env
+    field is an additive partial sum (``EpisodeStats`` block sums): rank 0
+    keeps it, the others start at zero, so the sums over the ranks are the
+    full runner's. Replicated fields are shared; the generator is copied."""
     def take(field, d):
         def leaf(x):
+            if hasattr(x, "shard"):
+                return x.shard(rank, world)
             if not isinstance(x, torch.Tensor):
                 return x
             if x.dim() == 0:
@@ -223,3 +285,99 @@ def shard_runner(runner, field_dims: Dict[str, int], rank: int, world: int):
             gen.set_state(value.get_state())
             out[f.name] = gen
     return dataclasses.replace(runner, **out)
+
+
+def gather_flags(*flags: torch.Tensor) -> np.ndarray:
+    """Each rank's (local envs,) bool flags → (len(flags), num_envs) bool on
+    the host, in global env order (env ``j`` from rank ``j % world``, row
+    ``j // world``). One all-gather; the copy to the host is the caller's
+    one device sync of an iteration."""
+    local = torch.stack(flags).to(torch.uint8)
+    world = rank_world()[1]
+    if world == 1:
+        return local.cpu().numpy().astype(bool)
+    local = _wire(local)
+    parts = [torch.empty_like(local) for _ in range(world)]
+    _collective(lambda: dist.all_gather(parts, local), local, flags[0].device)
+    both = torch.stack(parts, dim=-1).cpu()         # (k, local envs, world)
+    return both.reshape(len(flags), -1).numpy().astype(bool)
+
+
+def move_rows(tree: Any, src: np.ndarray, src_row: np.ndarray, dst: np.ndarray) -> Any:
+    """Rows sent between ranks in one ``all_to_all_single``. The host arrays
+    ``src``, ``src_row`` and ``dst``, equal on every rank, list the moved
+    rows in a global order: row ``src_row[k]`` (axis 0) of every leaf of
+    ``tree`` on rank ``src[k]`` goes to rank ``dst[k]``. → ``tree`` with
+    the rows this rank receives, in that global order (leaves (received,
+    ...)). The leaves travel as one byte matrix; a row that stays on its
+    rank is copied there and never crosses the wire, and without a row
+    that changes rank there is no collective."""
+    rank, world = rank_world()
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    elems = [int(np.prod(x.shape[1:], dtype=np.int64)) for x in leaves]
+    widths = [n * x.element_size() for n, x in zip(elems, leaves)]
+
+    def packed(items):
+        rows = torch.as_tensor(src_row[items], dtype=torch.int64, device=dev)
+        return torch.cat([x.index_select(0, rows).reshape(len(rows), n).view(torch.uint8)
+                          for n, x in zip(elems, leaves)], dim=1)
+    mine = np.flatnonzero(dst == rank)
+    # what this rank receives, ordered by source rank (each source's rows in
+    # the global order): the other ranks' rows around its own
+    own = packed(mine[src[mine] == rank])
+    before = int(np.sum(src[mine] < rank))
+    crossing = src != dst
+    if crossing.any():
+        sends = [np.flatnonzero((src == rank) & (dst == q) & crossing) for q in range(world)]
+        out_rows = _wire(packed(np.concatenate(sends)))
+        recv = torch.empty((len(mine) - len(own), out_rows.shape[1]), dtype=torch.uint8,
+                           device=out_rows.device)
+        counts = np.bincount(src[mine], minlength=world)
+        counts[rank] = 0
+        _collective(lambda: dist.all_to_all_single(
+            recv, out_rows, counts.tolist(), [len(k) for k in sends]), out_rows, dev)
+        recv = recv.to(dev)
+        own = torch.cat([recv[:before], own, recv[before:]])
+    # back in the global order
+    by_src = np.argsort(src[mine], kind="stable")
+    own = own[torch.as_tensor(np.argsort(by_src), dtype=torch.int64, device=dev)]
+    out, col = [], 0
+    for x, w in zip(leaves, widths):
+        out.append(own[:, col:col + w].clone(memory_format=torch.contiguous_format)
+                   .view(x.dtype)
+                   .reshape((len(mine),) + tuple(x.shape[1:])))
+        col += w
+    return tree_unflatten(tree, out)
+
+
+def rank0_randint(generator: torch.Generator, high: int, n: int) -> np.ndarray:
+    """``n`` indices uniform in ``[0, high)`` drawn on rank 0 from
+    ``generator`` (on its device), as the single process draws them, and
+    broadcast → on every rank, on the host."""
+    dev = generator.device
+    if rank_world()[0] == 0:
+        idx = torch.randint(0, high, (n,), generator=generator, device=dev)
+    else:
+        idx = torch.empty((n,), dtype=torch.int64, device=dev)
+    idx = _wire(idx)
+    _collective(lambda: dist.broadcast(idx, src=0), idx, dev)
+    return idx.cpu().numpy()
+
+
+def rank0_draw(draw: Callable[[], Sequence[torch.Tensor]], count: int, shape,
+               device) -> Tuple[torch.Tensor, ...]:
+    """``draw()`` → ``count`` float32 tensors of ``shape`` (the batch axis
+    first) on rank 0, broadcast in one collective → each one's batch rows
+    ``rank, rank + world, ...`` (``draw()`` itself with one rank)."""
+    rank, world = rank_world()
+    if world == 1:
+        return tuple(draw())
+    if rank == 0:
+        buf = torch.stack(tuple(draw()))
+    else:
+        buf = torch.empty((count,) + tuple(shape), dtype=torch.float32, device=device)
+    wire = _wire(buf)
+    _collective(lambda: dist.broadcast(wire, src=0), wire, torch.device(device))
+    buf = wire.to(device)
+    return tuple(x[rank::world].contiguous() for x in buf)

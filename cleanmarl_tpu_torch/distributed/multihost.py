@@ -130,6 +130,19 @@ def _mesh_rank(rank: int, fn: Callable, cfg: Any, world: int, port: int, results
         results.put(eval_metrics)
 
 
+def spawn_if_mesh(fn: Callable, cfg: Any, env=None, logger=None):
+    """A family's ``train(cfg, env, logger)`` under ``--use_mesh``: on more
+    than one card, ``fn(cfg)`` (``train`` itself, importable by name) runs
+    on one spawned rank per card, which builds the env and logger itself,
+    → (None, rank 0's last eval metrics); else None: train here."""
+    ranks = mesh_ranks(cfg)
+    if ranks == 1:
+        return None
+    if env is not None or logger is not None:
+        raise ValueError("--use_mesh builds the env and logger in every rank: pass neither")
+    return spawn_mesh(fn, cfg, ranks)
+
+
 def spawn_mesh(fn: Callable, cfg: Any, world: int):
     """Run ``fn(cfg)`` (a family's ``train``, importable by name) on
     ``world`` spawned ranks, one per card, over a localhost rendezvous.

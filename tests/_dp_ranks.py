@@ -66,7 +66,7 @@ def run_ranks(fn, world: int, *args, timeout: float = 240.0):
 def _np(tree):
     from cleanmarl_tpu_torch.core.params import tree_map
 
-    return tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
+    return tree_map(lambda x: np.array(x.detach().cpu()) if isinstance(x, torch.Tensor) else x,
                     tree)
 
 
@@ -184,3 +184,225 @@ def mappo_block(rank, world, port, kw):
                 critic=_np(runner.critic_params), obs=runner.obs.numpy(), sums=sums,
                 rollout=rollout, metrics=to_host(metrics), step=runner.step,
                 local_envs=meta["local_envs"])
+
+
+# ---------------------------------------------------------------------------
+# the off-policy families (tests/test_torch_distributed_offpolicy.py and the
+# driver-option tests of test_torch_{qmix,maddpg,facmac}.py)
+# ---------------------------------------------------------------------------
+
+def _ring_pair(kind, cap, length, example, num_envs, rank, world):
+    from cleanmarl_tpu_torch.buffers.episode import EpisodeAccumulator, EpisodeBuffer
+    from cleanmarl_tpu_torch.buffers.sequence import SequenceAccumulator, SequenceBuffer
+    from cleanmarl_tpu_torch.buffers.transition import TransitionBuffer
+
+    if kind == "episode":
+        return (EpisodeBuffer.create(cap, length, example, rank, world),
+                EpisodeAccumulator.create(num_envs, length, example))
+    if kind == "sequence":
+        return (SequenceBuffer.create(cap, length, example, rank, world),
+                SequenceAccumulator.create(num_envs, length, example))
+    return TransitionBuffer.create(cap, example, rank, world), None
+
+
+def feed_ring(kind, cap, length, steps, rank=0, world=1, sample=(5, 6)):
+    """A ring of ``kind`` (episode, sequence or transition) of ``cap`` global
+    rows fed this rank's envs of every ``(record, ended)`` step (numpy,
+    leading axis num_envs) → after each step (the ring's rows, lengths,
+    cursor, size and the counts ``add_step`` returned), then
+    ``ring.sample(Generator(seed), n)`` for ``sample = (seed, n)``."""
+    rec0 = steps[0][0]
+    example = {k: torch.zeros(v.shape[1:], dtype=torch.as_tensor(v).dtype)
+               for k, v in rec0.items()}
+    ring, acc = _ring_pair(kind, cap, length, example, rec0["obs"].shape[0] // world, rank,
+                           world)
+    snaps = []
+    for rec, ended in steps:
+        local = {k: _shard(v, rank, world, 0) for k, v in rec.items()}
+        if kind == "transition":
+            ring.add_batch(local)
+            counts = None
+        else:
+            counts = acc.add_step(ring, local, _shard(ended, rank, world, 0))
+        snaps.append(dict(data=_np(ring.data), cursor=ring.cursor, size=ring.size,
+                          counts=counts, length=_np(getattr(ring, "length", None))))
+    drawn = ring.sample(torch.Generator().manual_seed(sample[0]), sample[1])
+    return dict(snaps=snaps, sample=_np(drawn))
+
+
+def commit_rings(rank, world, port, cases):
+    join(rank, world, port)
+    return {name: feed_ring(*args, rank=rank, world=world) for name, args in cases.items()}
+
+
+def _port_state(start):
+    from cleanmarl_tpu_torch.core.params import from_numpy_tree
+
+    return {k: (_opt(v) if "opt" in k else from_numpy_tree(v, "cpu"))
+            for k, v in start.items()}
+
+
+def _offpolicy_update(rank, world, family, kw, start, batch, mask, noise):
+    """One update of ``family`` on this rank's rows ``rank::world`` of the
+    sampled ``batch`` (and its mask and noise) from the ``start`` state."""
+    from cleanmarl_tpu_torch.types import Transition
+
+    mod, cls = _family(family)
+    init, _, _, meta = mod.make_train(cls(**kw, device="cpu"))
+    b = {k: _shard(v, rank, world, 0) for k, v in batch.items()}
+    if "action" in b and b["action"].dtype == torch.int32:
+        b["action"] = b["action"].long()
+    m = None if mask is None else _shard(mask, rank, world, 0)
+    st = _port_state(start)
+    if family in ("maddpg", "facmac"):
+        runner = init(torch.Generator().manual_seed(0)).replace(**st)
+        out = meta["update"](runner, b, m, tuple(_shard(x, rank, world, 0) for x in noise))
+        return dict(actor=_np(out[0]), critic=_np(out[1]),
+                    metrics=[float(x) for x in out[4:]])
+    args = (st["params"], st["target_params"], st["opt_state"])
+    if family == "vdn":
+        out = meta["update"](*args, Transition(**b))
+    elif kw.get("replay") == "sequence":
+        out = meta["update_seq"](*args, b)
+    else:
+        out = meta["update"](*args, b, m)
+    return dict(params=_np(out[0]), metrics=[float(out[2]), float(out[3])],
+                count=out[1]["count"])
+
+
+def offpolicy_updates(rank, world, port, jobs):
+    """Every ``name: (family, kw, start, batch, mask, noise)`` job as one
+    update in the process group → {name: result}."""
+    join(rank, world, port)
+    from cleanmarl_tpu_torch.distributed import dp
+
+    out = {}
+    for name, args in jobs.items():
+        dp.COMM.reset()
+        out[name] = dict(_offpolicy_update(rank, world, *args), collectives=dp.COMM.calls)
+    return out
+
+
+def _family(family):
+    from cleanmarl_tpu_torch.algos import facmac, maddpg, qmix, recurrent_q, vdn
+
+    return {"qmix": (qmix, qmix.QMIXConfig), "vdn": (vdn, vdn.VDNConfig),
+            "recq": (recurrent_q, recurrent_q.RecurrentQConfig),
+            "maddpg": (maddpg, maddpg.MADDPGConfig),
+            "facmac": (facmac, facmac.FACMACConfig)}[family]
+
+
+def _params_of(runner):
+    return {k: _np(getattr(runner, k)) for k in ("params", "actor_params", "critic_params")
+            if hasattr(runner, k)}
+
+
+def offpolicy_blocks(rank, world, port, jobs, blocks=2):
+    """Each ``name: (family, kw)``: ``global_runner_init`` and ``blocks``
+    train blocks on this rank → its params, host counters, ring layout and
+    metrics."""
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS, dp
+
+    join(rank, world, port)
+    out = {}
+    for name, (family, kw) in jobs.items():
+        mod, cls = _family(family)
+        cfg = cls(**kw, device="cpu")
+        init, train_block, _, meta = mod.make_train(cfg)
+        table = DATA_FIELD_DIMS[{"recq": "RECURRENT_Q"}.get(family, family.upper())]
+        runner = dp.global_runner_init(
+            init, torch.Generator().manual_seed(dp.rank_seed(cfg.seed, rank)), table)
+        init_params = _params_of(runner)
+        metrics = []
+        for _ in range(blocks):
+            runner, m = train_block(runner)
+            metrics.append(to_host(m))
+        ring = getattr(runner, "ring", None) or runner.buffer
+        out[name] = dict(init_params=init_params, params=_params_of(runner), metrics=metrics,
+                         step=runner.step, episodes=getattr(runner, "episodes", None),
+                         num_updates=runner.num_updates, cursor=ring.cursor, size=ring.size,
+                         capacity=ring.capacity,
+                         rows=tree_leaves(ring.data)[0].shape[0],
+                         local_envs=meta["local_envs"], obs=runner.obs.numpy())
+    return out
+
+
+def driver_options(rank, world, port, family, kw, workdir):
+    """``train`` of ``family`` in the process group with each driver option
+    that needs the group: ``checkpoint_dir`` (then a resume to twice the
+    budget), ``profile_dir`` and ``num_processes`` → what each left."""
+    import dataclasses
+    import os
+    import types
+
+    join(rank, world, port)
+    mod, cls = _family(family)
+    log = types.SimpleNamespace(log=lambda *a: None, close=lambda: None)
+    base = cls(**kw, device="cpu")
+    total = base.total_timesteps
+    ckpt, prof = os.path.join(workdir, "ckpt"), os.path.join(workdir, "prof")
+    out = {}
+    runner, _ = mod.train(dataclasses.replace(base, checkpoint_dir=ckpt), logger=log)
+    resumed, _ = mod.train(dataclasses.replace(base, checkpoint_dir=ckpt, resume=True,
+                                               total_timesteps=2 * total), logger=log)
+    out["checkpoint"] = dict(step=runner.step, resumed_step=resumed.step,
+                             params=_params_of(resumed),
+                             episodes=getattr(resumed, "episodes", None))
+    runner, _ = mod.train(dataclasses.replace(base, profile_dir=prof), logger=log)
+    out["profile"] = dict(step=runner.step)
+    runner, _ = mod.train(dataclasses.replace(base, num_processes=world), logger=log)
+    ring = getattr(runner, "ring", None) or runner.buffer
+    out["multiprocess"] = dict(step=runner.step, params=_params_of(runner),
+                               episodes=getattr(runner, "episodes", None),
+                               cursor=ring.cursor, size=ring.size,
+                               num_updates=runner.num_updates)
+    return out
+
+
+def check_driver_option(option, mod, cfg, workdir, ranks, monkeypatch):
+    """What each driver option did for family ``mod`` (``driver_options``'s
+    2-rank results ``ranks``; ``use_mesh`` over two mocked cards spawns
+    ``mod.train`` on 2 ranks, mocked here)."""
+    import json
+    import os
+
+    from cleanmarl_tpu_torch.distributed import multihost
+
+    if option == "mesh":
+        calls = []
+        monkeypatch.setattr(multihost, "mesh_ranks", lambda c: 2)
+        monkeypatch.setattr(multihost, "spawn_mesh", lambda fn, c, world: (
+            calls.append((fn, c, world)), (None, {"eval/ep_reward": 1.0}))[1])
+        out = mod.train(cfg.__class__(**{**vars(cfg), "use_mesh": True}))
+        assert out == (None, {"eval/ep_reward": 1.0})
+        fn, spawned, world = calls[0]
+        assert world == 2 and spawned.use_mesh
+        assert getattr(fn, "func", fn) is mod.train       # importable by name
+        return
+    r0, r1 = ranks[0][option], ranks[1][option]
+    steps = cfg.total_timesteps // cfg.num_envs            # iterations of the budget
+    if option == "checkpoint":
+        ckpt = os.path.join(workdir, "ckpt")
+        total = cfg.total_timesteps
+        assert sorted(int(d) for d in os.listdir(ckpt) if d.isdigit()) == [total, 2 * total]
+        with open(os.path.join(ckpt, str(2 * total), "meta.json")) as f:
+            assert json.load(f)["world"] == 2
+        assert sorted(os.listdir(os.path.join(ckpt, str(2 * total)))) == [
+            "meta.json", "rank0.pt", "rank1.pt"]
+        assert (r0["step"], r0["resumed_step"]) == (steps, 2 * steps)
+        assert r0["episodes"] == r1["episodes"] > 0
+    elif option == "profile":
+        traces = os.listdir(os.path.join(workdir, "prof"))
+        assert len(traces) == 2 and all(t.endswith(".pt.trace.json") for t in traces)
+        assert r0["step"] == r1["step"] == steps
+    else:
+        assert r0["step"] == steps and r0["num_updates"] > 0
+        for k in ("episodes", "cursor", "size", "num_updates"):
+            assert r0[k] == r1[k], k
+    from cleanmarl_tpu_torch.core.params import tree_leaves
+
+    for a, b in zip(tree_leaves(r0.get("params", {})), tree_leaves(r1.get("params", {})),
+                    strict=True):
+        np.testing.assert_array_equal(a, b)

@@ -15,7 +15,8 @@ against the JAX package, on the CPU.
   ``make_train``: the JAX metric keys, finite values, and
   ``train/num_updates``, ``train/update_debt`` and ``rollout/epsilon``
   (ε runs on the update clock) equal, uncapped and capped; one
-  ``eval_fn``; the CLI; the driver options with more than one rank (ROADMAP A8).
+  ``eval_fn``; the CLI; the driver options over 2 gloo ranks (checkpoint and
+  resume, profile, ``num_processes``) and ``use_mesh``'s spawn, mocked.
 
 The JAX learning test (``tests/test_facmac.py:8``, 40,000 env steps with
 an update per completed episode) is not mirrored: eager updates take
@@ -30,6 +31,7 @@ import optax
 import pytest
 import torch
 
+import _dp_ranks
 from cleanmarl_tpu.algos import facmac as jfacmac
 from cleanmarl_tpu.algos.maddpg import gumbel_softmax as jgumbel_softmax
 from cleanmarl_tpu.core import networks as jnets
@@ -40,7 +42,6 @@ from cleanmarl_tpu_torch.core.driver import to_host
 from cleanmarl_tpu_torch.core.params import (
     from_numpy_tree, opt_state_from_numpy, tree_map,
 )
-from cleanmarl_tpu_torch.distributed import dp, multihost
 from cleanmarl_tpu_torch.envs import registry as treg
 
 torch.set_num_threads(1)
@@ -268,20 +269,25 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
                for p in (tmp_path / "runs").iterdir())
 
 
-@pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
-                                    dict(profile_dir="prof"), dict(num_processes=2)],
-                         ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option, monkeypatch):
-    """Every driver option with more than one rank (a 2-rank process group,
-    or ``use_mesh`` over two cards) raises: the off-policy families' data
-    parallelism is ROADMAP Queue A, A8. With one rank the options run
-    (``tests/test_torch_checkpoint.py``)."""
-    if option.get("use_mesh"):
-        monkeypatch.setattr(multihost, "mesh_ranks", lambda cfg: 2)
-    else:
-        monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, A8"):
-        facmac.train(facmac.FACMACConfig(**TINY, device="cpu", **option))
+@pytest.fixture(scope="module")
+def dp_options(tmp_path_factory):
+    """``train`` over 2 gloo ranks with each driver option that needs them
+    (``tests/_dp_ranks.py:driver_options``)."""
+    workdir = str(tmp_path_factory.mktemp("dp_options"))
+    return workdir, _dp_ranks.run_ranks(_dp_ranks.driver_options, 2, "facmac", TINY, workdir)
+
+
+@pytest.mark.parametrize("option", ["checkpoint", "mesh", "profile", "multiprocess"])
+def test_unported_driver_options_raise(option, dp_options, monkeypatch):
+    """The driver options that raised with more than one rank now run over
+    2 ranks: ``checkpoint_dir`` saves a file per rank and a resumed run
+    ends at twice the budget, ``profile_dir`` leaves a trace per rank,
+    ``num_processes=2`` trains with the counters equal on both ranks, and
+    ``use_mesh`` over two (mocked) cards spawns ``train`` on 2 ranks.
+    Every run ends with the params identical on both ranks."""
+    workdir, ranks = dp_options
+    _dp_ranks.check_driver_option(option, facmac, facmac.FACMACConfig(**TINY, device="cpu"), workdir,
+                                  ranks, monkeypatch)
 
 
 def test_cuda_request_raises_without_a_card():

@@ -19,7 +19,7 @@ against the JAX package, on the CPU.
   ``train/num_updates`` / ``train/update_debt`` equal (every MPE env
   truncates at step 25), uncapped, capped and recurrent; one ``eval_fn``;
 - the GRU carry is zero after every episode end; the CLI; the driver
-  options with more than one rank (ROADMAP A8); ``device="cuda"``
+  options over 2 gloo ranks and ``use_mesh``'s spawn, mocked; ``device="cuda"``
   raising without a card.
 
 The JAX learning tests (``tests/test_maddpg.py:36,62``, 40,000 env steps
@@ -35,6 +35,7 @@ import optax
 import pytest
 import torch
 
+import _dp_ranks
 from cleanmarl_tpu.algos import maddpg as jmaddpg
 from cleanmarl_tpu.core import networks as jnets
 from cleanmarl_tpu.core.optim import make_optimizer as jmake_optimizer
@@ -45,7 +46,6 @@ from cleanmarl_tpu_torch.core.driver import to_host
 from cleanmarl_tpu_torch.core.params import (
     from_numpy_tree, opt_state_from_numpy, tree_map,
 )
-from cleanmarl_tpu_torch.distributed import dp, multihost
 from cleanmarl_tpu_torch.envs import registry as treg
 
 torch.set_num_threads(1)
@@ -345,20 +345,25 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
                for p in (tmp_path / "runs").iterdir())
 
 
-@pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
-                                    dict(profile_dir="prof"), dict(num_processes=2)],
-                         ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option, monkeypatch):
-    """Every driver option with more than one rank (a 2-rank process group,
-    or ``use_mesh`` over two cards) raises: the off-policy families' data
-    parallelism is ROADMAP Queue A, A8. With one rank the options run
-    (``tests/test_torch_checkpoint.py``)."""
-    if option.get("use_mesh"):
-        monkeypatch.setattr(multihost, "mesh_ranks", lambda cfg: 2)
-    else:
-        monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, A8"):
-        maddpg.train(maddpg.MADDPGConfig(**TINY, device="cpu", **option))
+@pytest.fixture(scope="module")
+def dp_options(tmp_path_factory):
+    """``train`` over 2 gloo ranks with each driver option that needs them
+    (``tests/_dp_ranks.py:driver_options``)."""
+    workdir = str(tmp_path_factory.mktemp("dp_options"))
+    return workdir, _dp_ranks.run_ranks(_dp_ranks.driver_options, 2, "maddpg", TINY, workdir)
+
+
+@pytest.mark.parametrize("option", ["checkpoint", "mesh", "profile", "multiprocess"])
+def test_unported_driver_options_raise(option, dp_options, monkeypatch):
+    """The driver options that raised with more than one rank now run over
+    2 ranks: ``checkpoint_dir`` saves a file per rank and a resumed run
+    ends at twice the budget, ``profile_dir`` leaves a trace per rank,
+    ``num_processes=2`` trains with the counters equal on both ranks, and
+    ``use_mesh`` over two (mocked) cards spawns ``train`` on 2 ranks.
+    Every run ends with the params identical on both ranks."""
+    workdir, ranks = dp_options
+    _dp_ranks.check_driver_option(option, maddpg, maddpg.MADDPGConfig(**TINY, device="cpu"), workdir,
+                                  ranks, monkeypatch)
 
 
 def test_cuda_request_raises_without_a_card():

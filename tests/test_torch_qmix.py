@@ -17,8 +17,8 @@ package, on the CPU.
   finite values, and ``train/num_updates`` / ``train/update_debt`` equal
   to the JAX package's after each block (the episode clock fixes them:
   every MPE env truncates at step 25), uncapped and capped; one
-  ``eval_fn``; the CLI; the ``core/driver.py`` options with more than
-  one rank (ROADMAP A8).
+  ``eval_fn``; the CLI; the ``core/driver.py`` options over 2 gloo ranks
+  and ``use_mesh``'s spawn, mocked.
 """
 import functools
 
@@ -29,6 +29,7 @@ import optax
 import pytest
 import torch
 
+import _dp_ranks
 from cleanmarl_tpu.algos import qmix as jqmix
 from cleanmarl_tpu.buffers.episode import EpisodeAccumulator as JAcc
 from cleanmarl_tpu.buffers.episode import EpisodeBuffer as JRing
@@ -48,7 +49,6 @@ from cleanmarl_tpu_torch.core.params import (
 )
 from cleanmarl_tpu_torch.core.rewards import standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
-from cleanmarl_tpu_torch.distributed import dp, multihost
 from cleanmarl_tpu_torch.envs import registry as treg
 
 torch.set_num_threads(1)
@@ -369,17 +369,22 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
                for p in (tmp_path / "runs").iterdir())
 
 
-@pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(use_mesh=True),
-                                    dict(profile_dir="prof"), dict(num_processes=2)],
-                         ids=["checkpoint", "mesh", "profile", "multiprocess"])
-def test_unported_driver_options_raise(option, monkeypatch):
-    """Every driver option with more than one rank (a 2-rank process group,
-    or ``use_mesh`` over two cards) raises: the off-policy families' data
-    parallelism is ROADMAP Queue A, A8. With one rank the options run
-    (``tests/test_torch_checkpoint.py``)."""
-    if option.get("use_mesh"):
-        monkeypatch.setattr(multihost, "mesh_ranks", lambda cfg: 2)
-    else:
-        monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, A8"):
-        tqmix.train(tqmix.QMIXConfig(**TINY, device="cpu", **option))
+@pytest.fixture(scope="module")
+def dp_options(tmp_path_factory):
+    """``train`` over 2 gloo ranks with each driver option that needs them
+    (``tests/_dp_ranks.py:driver_options``)."""
+    workdir = str(tmp_path_factory.mktemp("dp_options"))
+    return workdir, _dp_ranks.run_ranks(_dp_ranks.driver_options, 2, "qmix", TINY, workdir)
+
+
+@pytest.mark.parametrize("option", ["checkpoint", "mesh", "profile", "multiprocess"])
+def test_unported_driver_options_raise(option, dp_options, monkeypatch):
+    """The driver options that raised with more than one rank now run over
+    2 ranks: ``checkpoint_dir`` saves a file per rank and a resumed run
+    ends at twice the budget, ``profile_dir`` leaves a trace per rank,
+    ``num_processes=2`` trains with the counters equal on both ranks, and
+    ``use_mesh`` over two (mocked) cards spawns ``train`` on 2 ranks.
+    Every run ends with the params identical on both ranks."""
+    workdir, ranks = dp_options
+    _dp_ranks.check_driver_option(option, tqmix, tqmix.QMIXConfig(**TINY, device="cpu"), workdir,
+                                  ranks, monkeypatch)

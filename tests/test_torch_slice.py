@@ -20,8 +20,7 @@ from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
 from cleanmarl_tpu_torch.algos.qmix import QMIXConfig
 from cleanmarl_tpu_torch.algos.vdn import VDNConfig
 from cleanmarl_tpu_torch.core.device import resolve_device
-from cleanmarl_tpu_torch.core.driver import run_training, to_host
-from cleanmarl_tpu_torch.distributed import dp
+from cleanmarl_tpu_torch.core.driver import to_host
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,9 +109,7 @@ def test_unported_driver_options_raise(option, tmp_path, monkeypatch):
     MAPPO with one rank: the checkpoint leaves the final step's directory,
     the profile a trace, ``use_mesh`` on the CPU does nothing, and
     ``num_processes`` without a coordinator runs one process, as in the
-    JAX package. What still raises is an off-policy family with more than
-    one rank (``run_training`` without ``data_field_dims``, below and in
-    their files)."""
+    JAX package."""
     monkeypatch.chdir(tmp_path)
     runner, _ = tmappo.train(PPOConfig(**TINY, device="cpu", **option))
     assert runner.step == TINY["total_timesteps"]
@@ -120,10 +117,6 @@ def test_unported_driver_options_raise(option, tmp_path, monkeypatch):
         assert (tmp_path / "ckpt" / str(TINY["total_timesteps"])).is_dir()
     if "profile_dir" in option:
         assert any((tmp_path / "prof").iterdir())
-    monkeypatch.setattr(dp, "rank_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_training("QMIX", PPOConfig(**TINY, device="cpu", **option), None, None,
-                     None, 1, None)
 
 
 @pytest.mark.parametrize("kw", [dict(gru_impl="pallas", tbptt=2),
