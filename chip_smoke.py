@@ -119,6 +119,17 @@ Phases, each of which must pass:
    ``vdn_rnn_seq_3m``, ``maddpg_rnn_sl`` and ``facmac_3m``; a 2-process
    QMIX CLI cluster that saves and resumes; and a ``qmix_rnn_3m`` resume
    in one process, bitwise but for the ring's scratch row.
+11. The validation runner (``cleanmarl_tpu_torch/validate.py``; phase 2
+   also holds and times K1 at ``mappo_27m30m_paper``'s update, T=60 over
+   512 envs x 27 agents, and K2, K3 and dw at its one minibatch, T=60,
+   M=13824, H=128, and at ``qmix_rnn_5m6m``'s, T=150, M=160, H=64): one
+   block of each of the ten recipes new to the port (``PATHS11``: five
+   SMAClite maps up to 27m_vs_30m, the MAPPO-paper flags together, QMIX-RNN
+   on 5m_vs_6m, MPE's referential game, the store-once QMIX ring) through
+   ``validate.run_config`` at full width, its budget one block's steps:
+   finite results, the recipe's eval metric, env-steps/s, peak memory and
+   each kernel of the recipe's path launched (``validate`` in
+   ``launches_by_path``: the ten runs' sum).
 
 ``--dp_ranks N`` (N cards) builds the kernels and runs only phase 10's
 rank checks over N ranks (nccl with a card each) and recurrent QMIX and
@@ -3106,6 +3117,116 @@ def check_offpolicy_cli():
     return dict(saved=saved, resumed_steps=steps, walls=[t1 - t0, t2 - t1])
 
 
+# phase 11: the validation runner (cleanmarl_tpu_torch/validate.py) over
+# the ten recipes that had not trained through the port, one block each
+PATHS11 = ("qmix_rnn_5m6m", "mappo_2s3z", "mappo_3s5z", "mappo_mmm", "mappo_mmm2",
+           "mappo_5m6m_paper", "mappo_8m9m_paper", "mappo_27m30m_paper", "mappo_reference",
+           "qmix_spread_memeff")
+P11_27M_ENVS, P11_27M_AGENTS = 512, 27      # mappo_27m30m_paper: one minibatch of 512 x 27
+P11_5M6M_SHAPE = (150, 32 * 5, 64)         # qmix_rnn_5m6m: 32 episodes x 5 agents, H=64
+
+
+def check_paths11_shapes(results):
+    """K1 at ``mappo_27m30m_paper``'s update (T=60, 512 envs x 27 agents:
+    the team reward and end flags broadcast over the agents, the values
+    per agent as ``normalize_values`` leaves them), and K2, K3 and dw at
+    its one minibatch (T=60, M=13824, H=128, per-env resets at 2 % a step
+    shared by the agents) and at ``qmix_rnn_5m6m``'s update (T=150, 32
+    episodes x 5 agents = 160 rows, H=64, no resets). Held against their
+    plain versions and timed; adds ``mappo_27m30m_shape`` to K1's row and
+    ``paths11_shapes`` to each tensor-core GRU row."""
+    import torch
+
+    T, E, n, H = 60, P11_27M_ENVS, P11_27M_AGENTS, 128
+    r, e, v, b = _returns_inputs(T, E, n, 0.02, True, False, seed=15)
+    time_k1_at(results, "mappo_27m30m_shape", r, e, v, b, 0.95, (n, 1),
+               f"mappo_27m30m_paper's update ({E} envs x {n} agents)")
+    g = torch.Generator("cuda").manual_seed(16)
+    ended = torch.rand(T, E, generator=g, device="cuda") < 0.02
+    keep = (1.0 - ended.float())[..., None].expand(T, E, n).reshape(T, E * n).contiguous()
+    for (T_, M, H_), kp in (((T, E * n, H), keep),
+                            (P11_5M6M_SHAPE, torch.ones(P11_5M6M_SHAPE[:2], device="cuda"))):
+        errs, ins, hs, rec = check_gru_shape(T_, M, H_, seed=M + T_, keep=kp)
+        add_shape_rows(results, "paths11_shapes", T_, M, H_, time_gru(T_, M, H_, ins, hs, rec))
+        keep_max_err(results, errs)
+
+
+def p11_expected(cfg, algo):
+    """{kernel: launches in one block} of a recipe's path, or None where
+    only "launched" is checked (recurrent Q: its updates follow the
+    episodes that end, 2 K2, 1 K3 and 1 dw each)."""
+    if algo == "mappo":
+        per_mb = cfg.log_interval * cfg.epochs * max(1, cfg.num_minibatches)
+        gru = per_mb if cfg.recurrent else 0
+        return {"lambda_returns": cfg.log_interval, "gru_seq_fwd": gru, "gru_seq_bwd": gru,
+                "gru_seq_dw": gru}
+    if algo == "qmix":
+        return dict.fromkeys(KERNEL_KEYS, 0)
+    return None
+
+
+def check_validate(counters):
+    """Phase 11: ``validate.run_config`` on the card for one block of each
+    of ``PATHS11`` at full width (its budget one block's steps), with every
+    kernel count set to 0 just before and read just after. Each run must
+    return finite results, its eval the recipe's metric, and launch each
+    kernel of its path (MAPPO: K1 once an update, K2, K3 and dw once a
+    minibatch on the recurrent actor; recurrent Q: K2, K3 and dw, K2 twice
+    as often; QMIX none). Prints env-steps/s over the block, the eval's
+    seconds, peak device memory and the launches."""
+    import torch
+    from cleanmarl_tpu_torch import validate
+    from cleanmarl_tpu_torch.recipes import RECIPES
+
+    out_dir = os.path.join(ROOT, "runs", "validate_torch", "chip_smoke")
+    out = {}
+    for name in PATHS11:
+        spec = RECIPES[name]
+        cfg, *_, spb, _ = validate.build(spec["algo"], validate.recipe_kwargs(name, 0, "cuda"))
+        torch.cuda.synchronize()
+        for table in counters:
+            for k in table:
+                table[k] = 0
+        t0 = time.perf_counter()
+        os.environ["BASELINES_BUDGET"] = str(spb)
+        try:
+            result, stats = validate.run_config(name, seed=0, device="cuda", out_dir=out_dir)
+        finally:
+            os.environ.pop("BASELINES_BUDGET")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for table in counters for k, v in table.items()}
+        main = {k: launches[k] for k in KERNEL_KEYS}
+        with open(stats["curve"]) as f:
+            curve = [json.loads(x) for x in f]
+        metric = spec.get("metric", "eval/ep_reward").replace("/", "_")
+        numbers = [result["tail_mean"], result["best"], stats["env_steps_per_s"],
+                   stats["train_s"], stats["eval_s"], stats["peak_mem_gib"],
+                   *[v for rec in curve for v in rec.values()]]
+        if len(curve) != 1 or metric not in curve[0]:
+            fail(f"[p11] {name}: the eval did not return {metric}: {curve}")
+        if not all(math.isfinite(x) for x in numbers):
+            fail(f"[p11] {name}: non-finite result {result} {stats} {curve}")
+        if result["env_steps"] != spb or stats["num_blocks"] != 1:
+            fail(f"[p11] {name}: ran {result['env_steps']} steps, not one block of {spb}")
+        want = p11_expected(cfg, spec["algo"])
+        if want is not None and main != want:
+            fail(f"[p11] {name}: launches {main}, expected {want} in one block")
+        if want is None and not (main["gru_seq_fwd"] > 0 and main["lambda_returns"] == 0
+                                 and main["gru_seq_fwd"] == 2 * main["gru_seq_bwd"]
+                                 == 2 * main["gru_seq_dw"]):
+            fail(f"[p11] {name}: launches {main}, expected K2 = 2 x K3 = 2 x dw > 0, no K1")
+        if any(v for k, v in launches.items() if k not in KERNEL_KEYS):
+            fail(f"[p11] {name}: an L2 GRU route was launched: {launches}")
+        log(f"[p11] {name}: one block of {spb} env steps, {stats['env_steps_per_s']:,.1f} "
+            f"env-steps/s ({stats['train_s']:.2f} s), eval of 64 episodes "
+            f"{stats['eval_s']:.2f} s, {metric}={curve[0][metric]:.4f}, peak device memory "
+            f"{stats['peak_mem_gib']:.3f} GiB, launches K1/K2/K3/dw "
+            f"{'/'.join(str(main[k]) for k in KERNEL_KEYS)}; {wall:.1f} s with set-up")
+        out[name] = dict(result=result, stats=stats, launches=launches, wall_s=wall)
+    return out
+
+
 def check_dp_ranks(world):
     """``--dp_ranks``: phase 10's rank checks (commit, one-step updates, the
     driven paths) over ``world`` ranks, one a card when there are as many
@@ -3184,6 +3305,7 @@ def main():
     check_paths8_shapes(results)
     check_paths9_shapes(results)
     check_paths10_shapes(results)
+    check_paths11_shapes(results)
 
     # phase 3: the main path
     check_update_against_cpu()
@@ -3256,12 +3378,19 @@ def main():
     offpolicy_cli = check_offpolicy_cli()
     log(f"[p10 cli] in {lap_s()}; phase 10 in {time.perf_counter() - t10:.1f} s")
 
+    # phase 11: the validation runner over the ten recipes new to the port
+    t11 = time.perf_counter()
+    paths11 = check_validate(counters)
+    log(f"[p11] phase 11 in {time.perf_counter() - t11:.1f} s")
+
     by_path = {"mappo": main_path["launches"],
                **{k: v["launches"] for k, v in {**recq, **paths7, **paths8}.items()},
                "host_ippo": dict(dict.fromkeys(KERNEL_KEYS, 0), **host_route["launches"]),
                "mappo_3m_collisions": collisions["launches"],
                "mappo_dp": data_parallel["launches"],
-               **{f"{k}_dp": v["launches"] for k, v in offpolicy_dp["drive"].items()}}
+               **{f"{k}_dp": v["launches"] for k, v in offpolicy_dp["drive"].items()},
+               "validate": {k: sum(v["launches"][k] for v in paths11.values())
+                            for k in next(iter(paths11.values()))["launches"]}}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
                     launches_by_path={p: c.get(name, 0) for p, c in by_path.items()}, **r)
                for name, r in results.items()]
@@ -3275,7 +3404,7 @@ def main():
                            collisions=collisions, resume=resume,
                            data_parallel=data_parallel, dp_cli=dp_cli,
                            offpolicy_dp=offpolicy_dp, offpolicy_resume=offpolicy_resume,
-                           offpolicy_cli=offpolicy_cli),
+                           offpolicy_cli=offpolicy_cli, paths11=paths11),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

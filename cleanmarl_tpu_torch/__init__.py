@@ -5,9 +5,10 @@ The module tree mirrors the JAX package (``envs/``, ``core/``,
 to find. Ported: the seven algorithms (IPPO, MAPPO, QMIX, VDN and their
 recurrent forms, MADDPG, FACMAC, COMA) and every env family (SMAClite,
 MPE, the matrix game, SISL pursuit, LBF, and host PettingZoo envs through
-``envs/external.py``), full-runner checkpoints (``core/checkpoint.py``)
-and data-parallel training over ``torch.distributed`` for MAPPO, IPPO and
-COMA (``distributed/``). Differences in idiom:
+``envs/external.py``), full-runner checkpoints (``core/checkpoint.py``),
+data-parallel training over ``torch.distributed`` for all seven families
+(``distributed/``), and a runner for the validation recipes
+(``validate.py`` over ``recipes.py``). Differences in idiom:
 
 - envs are natively batched over a leading ``num_envs`` axis (no vmap);
 - randomness comes from explicit ``torch.Generator``s, not PRNG keys;

@@ -74,7 +74,8 @@ def _random_actions(rng, avail):
     return u.argmax(-1)
 
 
-@pytest.mark.parametrize("name", ["3m", "2s3z", "MMM"])
+@pytest.mark.parametrize("name", ["3m", "2s3z", "MMM", "3s5z", "MMM2", "5m_vs_6m", "8m_vs_9m",
+                                  "27m_vs_30m"])
 def test_batched_vecenv_step_matches_jax_per_env(name):
     N = 6
     jenv = jreg.make("smaclite", name, agent_ids=True)
