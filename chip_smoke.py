@@ -130,6 +130,21 @@ Phases, each of which must pass:
    finite results, the recipe's eval metric, env-steps/s, peak memory and
    each kernel of the recipe's path launched (``validate`` in
    ``launches_by_path``: the ten runs' sum).
+12. Restore at another world size (``core/checkpoint.py``,
+   ``dp.unshard_runners``): the main path's MAPPO (8192 envs, GRU 128)
+   and ``qmix_rnn_3m`` (ring cut to 500 episodes, after updates have
+   started) saved by two gloo ranks and restored in this process at 1
+   (each rank's file bitwise its share of the restored runner, their
+   partial sums adding up to its own), one driven block from it (K1, K2,
+   K3 and dw at T=60, M=3072; K2, K3 and dw at T=150, M=96) and one more
+   timed alone, saved and restored by two ranks (each rank's restored
+   runner bitwise its share of the runner saved, rank 1's generator the
+   rule's new stream, the two streams different; shares cut by this
+   script's own index arithmetic, not by the ``dp`` code under test), two
+   blocks on each (M=1536; M=48), params bitwise identical across the
+   ranks; sizes, save and restore seconds beside the same-world restores
+   of phases 9 and 10, and both blocks' env-steps/s (``*_resume_2to1``
+   and ``*_resume_1to2`` in ``launches_by_path``: the first block's).
 
 ``--dp_ranks N`` (N cards) builds the kernels and runs only phase 10's
 rank checks over N ranks (nccl with a card each) and recurrent QMIX and
@@ -2239,12 +2254,14 @@ def check_resume():
     from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
     from cleanmarl_tpu_torch.core.checkpoint import Checkpointer
     from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS
 
-    init, train_block, _, _ = make_train(PPOConfig(**BENCH, device="cuda"))
+    cfg = PPOConfig(**BENCH, device="cuda")
+    init, train_block, _, _ = make_train(cfg)
     runner, _ = train_block(init(torch.Generator("cuda").manual_seed(0)))
     work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
     try:
-        ckpt = Checkpointer(work)
+        ckpt = Checkpointer(work, field_dims=DATA_FIELD_DIMS["PPO"], seed=cfg.seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ckpt.save(runner.step, runner, wait=True)
@@ -2278,33 +2295,81 @@ def check_resume():
                 step=runner.step, resumed_step=b.step, bitwise=bitwise, differ=differ)
 
 
-def _dp_rank(rank, world, port, out):
-    """One rank of phase 9's data-parallel MAPPO; sends (rank, status,
-    result) to the parent."""
+def _rank_entry(rank, world, port, body, args, out):
+    """One spawned rank: TF32 off, then the function of this module named
+    ``body``; sends (rank, status, result) to the parent."""
     import traceback
 
     try:
-        out.put((rank, "ok", _dp_rank_body(rank, world, port)))
+        sys.path.insert(0, ROOT)
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out.put((rank, "ok", globals()[body](rank, world, port, *args)))
     except BaseException:
         out.put((rank, "error", traceback.format_exc()))
         raise
 
 
-def _dp_rank_body(rank, world, port):
+def _join_group(rank, world, port):
+    """This spawned rank joins the ranks' group at ``localhost:port``."""
     import dataclasses
 
-    sys.path.insert(0, ROOT)
+    from cleanmarl_tpu_torch.algos.qmix import QMIXConfig
+    from cleanmarl_tpu_torch.distributed import multihost
+
+    multihost.maybe_initialize(dataclasses.replace(
+        QMIXConfig(device="cuda"), coordinator_address=f"localhost:{port}",
+        num_processes=world, process_id=rank))
+
+
+def spawn_ranks(body, *args, timeout=600):
+    """The function of this module named ``body`` on DP_WORLD spawned ranks
+    (each joins the group itself, ``_join_group``) → their results in rank
+    order; fails if a rank raises, gives no result within ``timeout``
+    seconds or exits non-zero."""
+    import multiprocessing
+
+    from cleanmarl_tpu_torch.distributed import multihost
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = multihost.free_port()
+    procs = [ctx.Process(target=_rank_entry, args=(r, DP_WORLD, port, body, args, out))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(DP_WORLD):
+            rank, status, value = out.get(timeout=timeout)
+            if status != "ok":
+                fail(f"{body} on rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"a rank of {body} exited with {[p.exitcode for p in procs]}")
+    return [results[r] for r in range(DP_WORLD)]
+
+
+def _dp_rank_body(rank, world, port):
+    """One rank of phase 9's data-parallel MAPPO (``spawn_ranks``)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
     from cleanmarl_tpu_torch.algos.mappo import make_train
     from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
     from cleanmarl_tpu_torch.core.driver import to_host
     from cleanmarl_tpu_torch.core.params import tree_leaves
-    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS, dp, multihost
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS, dp
     from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = PPOConfig(**BENCH, device="cuda")
     one_step = dataclasses.replace(cfg, epochs=1, num_minibatches=1)
     variants = {"one_step_scan": dataclasses.replace(one_step, gru_impl="scan"),
@@ -2319,8 +2384,7 @@ def _dp_rank_body(rank, world, port):
     if rank == 0:
         ref = {name: meta_f["ppo_update"](r1, traj, h0) for name, meta_f in full.items()}
     del full, init_f
-    multihost.maybe_initialize(dataclasses.replace(
-        cfg, coordinator_address=f"localhost:{port}", num_processes=world, process_id=rank))
+    _join_group(rank, world, port)
     local = dp.shard_runner(r1, DATA_FIELD_DIMS["PPO"], rank, world)
     traj_l = {k: v[:, rank::world].contiguous() for k, v in traj.items()}
     h0_l = h0[rank::world].contiguous()
@@ -2404,32 +2468,8 @@ def check_data_parallel():
     which the split changes. Then three driven blocks per rank (the first
     counts the kernels' launches, the second gives env-steps/s, the third
     times each collective between two synchronizes)."""
-    import multiprocessing
-
-    from cleanmarl_tpu_torch.distributed import multihost
-
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    port = multihost.free_port()
-    procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, port, out))
-             for r in range(DP_WORLD)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    results = {}
-    try:
-        for _ in range(DP_WORLD):
-            rank, status, value = out.get(timeout=600)
-            if status != "ok":
-                fail(f"data-parallel rank {rank} failed:\n{value}")
-            results[rank] = value
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-    if any(p.exitcode != 0 for p in procs):
-        fail(f"a data-parallel rank exited with {[p.exitcode for p in procs]}")
+    results = dict(enumerate(spawn_ranks("_dp_rank_body", timeout=600)))
     r0 = results[0]
     for name in ("one_step_scan", "one_step_kernel"):
         u = r0["update"][name]
@@ -2818,37 +2858,17 @@ def _p10_drive(name, counters, timed_blocks, comm_block):
         steps_per_block=meta["steps_per_block"])
 
 
-def _p10_rank(rank, world, port, out):
-    """One rank of phase 10; sends (rank, status, result) to the parent."""
-    import traceback
-
-    try:
-        out.put((rank, "ok", _p10_rank_body(rank, world, port)))
-    except BaseException:
-        out.put((rank, "error", traceback.format_exc()))
-        raise
-
-
 def _p10_rank_body(rank, world, port):
-    import dataclasses
-
-    sys.path.insert(0, ROOT)
-    import torch
-    from cleanmarl_tpu_torch.algos.qmix import QMIXConfig
-    from cleanmarl_tpu_torch.distributed import multihost
+    """One rank of phase 10 (``spawn_ranks``)."""
     from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cases = {name: (kind, cap, length, _p10_steps(i))
              for i, (name, (kind, cap, length)) in enumerate(sorted(P10_COMMITS.items()))}
     res = dict(rank=rank)
     if rank == 0:        # the single-process references, before the group exists
         res["commit_ref"] = {n: _p10_feed(*c, 0, 1) for n, c in cases.items()}
         res["update_ref"] = _p10_updates(1)
-    multihost.maybe_initialize(dataclasses.replace(
-        QMIXConfig(device="cuda"), coordinator_address=f"localhost:{port}",
-        num_processes=world, process_id=rank))
+    _join_group(rank, world, port)
     t0 = time.perf_counter()
     res["commit"] = {n: _p10_feed(*c, rank, world) for n, c in cases.items()}
     res["update"] = _p10_updates(world)
@@ -2876,35 +2896,12 @@ def check_offpolicy_dp(recq_single):
     docstring. ``recq_single`` is phase 6's ``qmix_rnn_3m`` result, the
     single process beside which the 2-rank env-steps/s is read (None:
     none ran)."""
-    import multiprocessing
-
     import numpy as np
     from cleanmarl_tpu_torch.core.params import tree_leaves
-    from cleanmarl_tpu_torch.distributed import dp, multihost
+    from cleanmarl_tpu_torch.distributed import dp
 
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    port = multihost.free_port()
-    procs = [ctx.Process(target=_p10_rank, args=(r, DP_WORLD, port, out))
-             for r in range(DP_WORLD)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    results = {}
-    try:
-        for _ in range(DP_WORLD):
-            rank, status, value = out.get(timeout=900)
-            if status != "ok":
-                fail(f"phase 10 rank {rank} failed:\n{value}")
-            results[rank] = value
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-    if any(p.exitcode != 0 for p in procs):
-        fail(f"a phase 10 rank exited with {[p.exitcode for p in procs]}")
-    ranks = [results[r] for r in range(DP_WORLD)]
+    ranks = spawn_ranks("_p10_rank_body", timeout=900)
     r0 = ranks[0]
 
     # (a) the commit: the union of the ranks' rows equals the single-process
@@ -3033,14 +3030,14 @@ def check_offpolicy_resume():
         for x in tree_leaves(runner.ring.data) + [runner.ring.length]:
             x[-1] = 0
         return runner
-    mod, cfg, _ = _p10_recipe("qmix_rnn_3m", "cuda", buffer_size=P10_RESUME_BUFFER)
+    mod, cfg, table = _p10_recipe("qmix_rnn_3m", "cuda", buffer_size=P10_RESUME_BUFFER)
     init, train_block, _, _ = mod.make_train(cfg)
     runner = init(torch.Generator("cuda").manual_seed(0))
     while runner.num_updates == 0:
         runner, _ = train_block(runner)
     work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
     try:
-        ckpt = Checkpointer(work)
+        ckpt = Checkpointer(work, field_dims=table, seed=cfg.seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ckpt.save(runner.step, runner, wait=True)
@@ -3227,6 +3224,320 @@ def check_validate(counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: restore a checkpoint at another world size (core/checkpoint.py,
+# dp.unshard_runners); two gloo ranks on the one card, as phases 9 and 10
+# ---------------------------------------------------------------------------
+
+P12_CASES = ("mappo", "qmix_rnn_3m")
+
+
+def _p12_case(name, device):
+    """(module, config, fields table) of a phase-12 case: the main path's
+    MAPPO (``BENCH``) or ``qmix_rnn_3m`` with the ring cut to
+    ``P10_RESUME_BUFFER``."""
+    from cleanmarl_tpu_torch.algos import mappo
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS
+
+    if name == "mappo":
+        return mappo, mappo.PPOConfig(**BENCH, device=device), DATA_FIELD_DIMS["PPO"]
+    return _p10_recipe(name, device, buffer_size=P10_RESUME_BUFFER)
+
+
+def _p12_checkpointer(work, name, wrote, table, cfg):
+    from cleanmarl_tpu_torch.core.checkpoint import Checkpointer
+
+    return Checkpointer(os.path.join(work, name, str(wrote)), field_dims=table, seed=cfg.seed)
+
+
+def _p12_size_mib(ckpt):
+    d = os.path.join(ckpt.directory, str(ckpt.latest_step()))
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 2**20
+
+
+def _p12_timed(fn):
+    """(fn(), seconds), the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _p12_block(name, train_block, runner, counters, env_steps):
+    """One driven block (``env_steps`` global env steps) from a restored
+    runner, every kernel count set to 0 just before and read just after,
+    then one more block, timed alone (the first pays what a process's
+    first block pays) → (runner, their measures)."""
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    for table in counters:
+        for k in table:
+            table[k] = 0
+    n0 = runner.num_updates
+    (runner, metrics), wall = _p12_timed(lambda: train_block(runner))
+    metrics = to_host(metrics)
+    launches = {k: v for table in counters for k, v in table.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"[p12] {name}: non-finite metrics after the restore: {metrics}")
+    if runner.num_updates <= n0:
+        fail(f"[p12] {name}: no update ran in the block after the restore")
+    wanted = KERNEL_KEYS if name == "mappo" else KERNEL_KEYS[1:]
+    if any(launches[k] <= 0 for k in wanted):
+        fail(f"[p12] {name}: the block after the restore did not launch {wanted}: {launches}")
+    updates = runner.num_updates - n0
+    (runner, _), next_wall = _p12_timed(lambda: train_block(runner))
+    return runner, dict(wall_s=wall, next_wall_s=next_wall, updates=updates,
+                        launches=launches, env_steps=env_steps, metrics=metrics)
+
+
+def _p12_save_body(rank, world, port, work):
+    """Each case on this rank of the group: init, training until an update
+    has run (MAPPO: one block), a save by the ranks → its seconds."""
+    import torch
+    from cleanmarl_tpu_torch.distributed import dp
+
+    _join_group(rank, world, port)
+    res = {}
+    for name in P12_CASES:
+        mod, cfg, table = _p12_case(name, "cuda")
+        init, train_block, _, meta = mod.make_train(cfg)
+        runner = dp.global_runner_init(init, torch.Generator("cuda").manual_seed(
+            dp.rank_seed(cfg.seed, rank)), table)
+        if name == "mappo":
+            runner, _ = train_block(runner)
+        while runner.num_updates == 0:
+            out = meta["train_iter"](runner)
+            runner = out[0] if isinstance(out, tuple) else out
+        ckpt = _p12_checkpointer(work, name, world, table, cfg)
+        dp.barrier()
+        _, save_s = _p12_timed(lambda: ckpt.save(runner.step, runner))
+        res[name] = dict(save_s=save_s, step=runner.step, local_envs=meta["local_envs"])
+    return res
+
+
+def _p12_restore_body(rank, world, port, work):
+    """Each case's single-process checkpoint restored on this rank of the
+    group and written as it came back (``_p12_restored_path``) for the
+    parent to hold, then one driven block; the params bitwise identical
+    across the ranks after it."""
+    import torch
+    from cleanmarl_tpu_torch.core.checkpoint import to_state
+    from cleanmarl_tpu_torch.distributed import dp
+    from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
+
+    _join_group(rank, world, port)
+    counters = (returns_kernel.LAUNCHES, gru_kernel.LAUNCHES)
+    res = {}
+    for name in P12_CASES:
+        mod, cfg, table = _p12_case(name, "cuda")
+        init, train_block, _, meta = mod.make_train(cfg)
+        template = dp.global_runner_init(init, torch.Generator("cuda").manual_seed(
+            dp.rank_seed(cfg.seed, rank)), table)
+        ckpt = _p12_checkpointer(work, name, 1, table, cfg)
+        dp.barrier()
+        restored, restore_s = _p12_timed(lambda: ckpt.restore(template))
+        torch.save(to_state(restored), _p12_restored_path(work, name, rank))
+        runner, block = _p12_block(name, train_block, restored, counters,
+                                   meta["steps_per_block"])
+        res[name] = dict(restore_s=restore_s, block=block, local_envs=meta["local_envs"],
+                         identical=_p10_identical(_p10_params(runner)))
+    return res
+
+
+def _p12_restored_path(work, name, rank):
+    return os.path.join(work, name, f"restored{rank}.pt")
+
+
+def _p12_load(path):
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _p12_leaves(state, table, rank=0, world=1):
+    """A runner's ``to_state`` tree as three {path: leaf} maps, cut to rank
+    ``rank``'s share of ``world`` ranks by index arithmetic of this
+    script's own (not ``dp.shard_runner``'s): (1) every leaf but those of
+    (2) and (3), a per-env one cut to the envs ``rank, rank + world, ...``
+    on its field's axis, a ring's rows to the rows ``i`` with ``i % world
+    == rank``, its scratch row (unread) left out; (2) the 0-d partial sums
+    of the per-env fields, whole; (3) the generator states, whole."""
+    import torch
+
+    cut, sums, gens = {}, {}, {}
+
+    def walk(x, path, axis, ring):
+        if isinstance(x, dict) and "__generator_state__" in x:
+            gens[path] = x["__generator_state__"]
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{path}.{k}", axis, ring)
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]", axis, ring)
+        elif not isinstance(x, torch.Tensor) or axis is None:
+            cut[path] = x
+        elif x.dim() == 0:
+            sums[path] = x
+        elif ring:
+            cut[path] = x[:-1][rank::world]
+        else:
+            cut[path] = x[(slice(None),) * axis + (slice(rank, None, world),)]
+
+    for name in sorted(state):
+        if name == "ring":         # an episode ring: rows, then one scratch row
+            for k in sorted(state[name]):
+                walk(state[name][k], f"ring.{k}", 0, k in ("data", "length"))
+        else:
+            walk(state[name], name, table.get(name), False)
+    return cut, sums, gens
+
+
+def _p12_same(a, b):
+    """Tensors of one dtype and shape, equal bit for bit; else equal values
+    of one type."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def _p12_hold(whole, shares, table, what):
+    """Fails unless each of ``shares`` (``to_state`` trees in rank order)
+    is its rank's cut of the single-process runner ``whole``
+    (``_p12_leaves``) and the shares' partial sums add up to ``whole``'s.
+    Generators are the caller's to hold."""
+    world = len(shares)
+    total = None
+    for k, share in enumerate(shares):
+        want = _p12_leaves(whole, table, k, world)[0]
+        got, sums, _ = _p12_leaves(share, table)
+        if sorted(got) != sorted(want):
+            fail(f"[p12] {what}: rank {k}'s fields {sorted(set(got) ^ set(want))} are not "
+                 f"the runner's")
+        bad = [p for p in want if not _p12_same(got[p], want[p])]
+        if bad:
+            fail(f"[p12] {what}: rank {k} is not its share of the runner at {bad[:8]}")
+        total = sums if total is None else {p: total[p] + sums[p] for p in total}
+    whole_sums = _p12_leaves(whole, table)[1]
+    bad = [p for p in whole_sums if not _p12_same(total.get(p), whole_sums[p])]
+    if sorted(total) != sorted(whole_sums) or bad:
+        fail(f"[p12] {what}: the ranks' partial sums do not add up to the runner's at {bad}")
+
+
+def _p12_same_gens(a, b):
+    return sorted(a) == sorted(b) and all(_p12_same(a[p], b[p]) for p in a)
+
+
+def check_elastic_resume(card, same_world):
+    """Phase 12: each of ``P12_CASES`` saved by DP_WORLD gloo ranks and
+    restored here at 1 (each rank's file its share of the restored runner,
+    partial sums added, rank 0's generator; then one driven block), saved
+    here and restored by DP_WORLD ranks (each rank's restored runner its
+    share of the runner saved, rank 0's generator the saved one and rank
+    1's the rule's new stream, the two different; then one block each,
+    params identical). Shares are cut by ``_p12_leaves``, not by the
+    ``dp`` code under test. Sizes and seconds beside ``same_world``
+    (phases 9 and 10's restores at the world that wrote them)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cleanmarl_tpu_torch.core.checkpoint import to_state
+    from cleanmarl_tpu_torch.distributed import dp
+    from cleanmarl_tpu_torch.ops import gru_kernel, returns_kernel
+
+    counters = (returns_kernel.LAUNCHES, gru_kernel.LAUNCHES)
+    work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
+    out, kept = {}, {}
+    try:
+        t0 = time.perf_counter()
+        saved = spawn_ranks("_p12_save_body", work)
+        spawn_s = time.perf_counter() - t0
+        for name in P12_CASES:
+            mod, cfg, table = _p12_case(name, "cuda")
+            init, train_block, _, meta = mod.make_train(cfg)
+            template = init(torch.Generator("cuda").manual_seed(cfg.seed))
+            ckpt = _p12_checkpointer(work, name, DP_WORLD, table, cfg)
+            step = ckpt.latest_step()
+            size2 = _p12_size_mib(ckpt)
+            restored, restore_s = _p12_timed(lambda: ckpt.restore(template))
+            whole = to_state(restored)
+            files = [_p12_load(os.path.join(ckpt.directory, str(step), f"rank{k}.pt"))["runner"]
+                     for k in range(DP_WORLD)]
+            _p12_hold(whole, files, table, f"{name} {DP_WORLD} -> 1")
+            if not _p12_same_gens(_p12_leaves(whole, table)[2], _p12_leaves(files[0], table)[2]):
+                fail(f"[p12] {name} {DP_WORLD} -> 1: the generator is not rank 0's")
+            del whole, files
+            runner, block = _p12_block(name, train_block, restored, counters,
+                                       meta["steps_per_block"])
+            kept[name] = to_state(runner)
+            one = _p12_checkpointer(work, name, 1, table, cfg)
+            _, save1_s = _p12_timed(lambda: one.save(runner.step, runner))
+            out[name] = {"2to1": dict(size_mib=size2, save_s=max(r[name]["save_s"]
+                                                                  for r in saved),
+                                      restore_s=restore_s, step=step, block=block,
+                                      env_steps_per_s=block["env_steps"] / block["wall_s"],
+                                      next_env_steps_per_s=(block["env_steps"]
+                                                            / block["next_wall_s"])),
+                         "1to2": dict(size_mib=_p12_size_mib(one), save_s=save1_s,
+                                      step=runner.step)}
+            del runner, restored, template
+        t1 = time.perf_counter()
+        restored2 = spawn_ranks("_p12_restore_body", work)
+        spawn2_s = time.perf_counter() - t1
+        for name in P12_CASES:
+            _, cfg, table = _p12_case(name, "cuda")
+            what = f"{name} 1 -> {DP_WORLD}"
+            shares = [_p12_load(_p12_restored_path(work, name, k)) for k in range(DP_WORLD)]
+            _p12_hold(kept[name], shares, table, what)
+            gens = [_p12_leaves(s, table)[2] for s in shares]
+            if not _p12_same_gens(gens[0], _p12_leaves(kept[name], table)[2]):
+                fail(f"[p12] {what}: rank 0's generator is not the saved one")
+            seed = dp.resume_seed(cfg.seed, 1, DP_WORLD, out[name]["1to2"]["step"])
+            new = torch.Generator("cuda").manual_seed(seed).get_state()
+            if not all(_p12_same(g, new) for g in gens[1].values()):
+                fail(f"[p12] {what}: rank 1's generator is not the rule's new stream")
+            if any(_p12_same(gens[0][p], gens[1][p]) for p in gens[0]):
+                fail(f"[p12] {what}: the two ranks restored the same generator state")
+            del shares, kept[name]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name in P12_CASES:
+        ranks = [r[name] for r in restored2]
+        if not all(r["identical"] for r in ranks):
+            fail(f"[p12] {name}: params differ across the ranks after the 1 -> 2 block")
+        b = ranks[0]["block"]
+        out[name]["1to2"].update(
+            restore_s=max(r["restore_s"] for r in ranks), block=b,
+            local_envs=ranks[0]["local_envs"],
+            env_steps_per_s=b["env_steps"] / max(r["block"]["wall_s"] for r in ranks),
+            next_env_steps_per_s=b["env_steps"] / max(r["block"]["next_wall_s"] for r in ranks),
+            launches_by_rank=[r["block"]["launches"] for r in ranks])
+        for key, (n, m) in (("2to1", (DP_WORLD, 1)), ("1to2", (1, DP_WORLD))):
+            o = out[name][key]
+            ref = same_world[name]
+            log(f"[p12] {card}: {name} {n} -> {m} ranks at step {o['step']}: "
+                f"{o['size_mib']:.2f} MiB, save {o['save_s']:.3f} s, restore "
+                f"{o['restore_s']:.3f} s (same world, phase {ref['phase']}: "
+                f"{ref['size_mib']:.2f} MiB, save {ref['save_s']:.3f} s, restore "
+                f"{ref['restore_s']:.3f} s); resumed block {o['block']['env_steps']} env steps "
+                f"in {o['block']['wall_s']:.3f} s ({o['env_steps_per_s']:,.1f} env-steps/s; the "
+                f"next block {o['next_env_steps_per_s']:,.1f}), "
+                f"{o['block']['updates']} updates, launches "
+                f"{'/'.join(str(o['block']['launches'][k]) for k in KERNEL_KEYS)} (K1/K2/K3/dw)")
+    log(f"[p12] {card}: each rank's file bitwise its share of the runner restored at 1 "
+        f"(2 -> 1), each rank's restored runner bitwise its share of the one saved at 1 "
+        f"(1 -> 2; rank 1's generator the rule's new stream), shares cut independently of dp; "
+        f"params identical across ranks; spawns {spawn_s:.1f} s and {spawn2_s:.1f} s")
+    return out
+
+
 def check_dp_ranks(world):
     """``--dp_ranks``: phase 10's rank checks (commit, one-step updates, the
     driven paths) over ``world`` ranks, one a card when there are as many
@@ -3383,6 +3694,12 @@ def main():
     paths11 = check_validate(counters)
     log(f"[p11] phase 11 in {time.perf_counter() - t11:.1f} s")
 
+    # phase 12: restore a checkpoint at another world size
+    t12 = time.perf_counter()
+    elastic = check_elastic_resume(card, {"mappo": dict(resume, phase=9),
+                                          "qmix_rnn_3m": dict(offpolicy_resume, phase=10)})
+    log(f"[p12] phase 12 in {time.perf_counter() - t12:.1f} s")
+
     by_path = {"mappo": main_path["launches"],
                **{k: v["launches"] for k, v in {**recq, **paths7, **paths8}.items()},
                "host_ippo": dict(dict.fromkeys(KERNEL_KEYS, 0), **host_route["launches"]),
@@ -3390,7 +3707,9 @@ def main():
                "mappo_dp": data_parallel["launches"],
                **{f"{k}_dp": v["launches"] for k, v in offpolicy_dp["drive"].items()},
                "validate": {k: sum(v["launches"][k] for v in paths11.values())
-                            for k in next(iter(paths11.values()))["launches"]}}
+                            for k in next(iter(paths11.values()))["launches"]},
+               **{f"{k}_resume_{d}": v[d]["block"]["launches"] for k, v in elastic.items()
+                  for d in ("2to1", "1to2")}}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
                     launches_by_path={p: c.get(name, 0) for p, c in by_path.items()}, **r)
                for name, r in results.items()]
@@ -3404,7 +3723,8 @@ def main():
                            collisions=collisions, resume=resume,
                            data_parallel=data_parallel, dp_cli=dp_cli,
                            offpolicy_dp=offpolicy_dp, offpolicy_resume=offpolicy_resume,
-                           offpolicy_cli=offpolicy_cli, paths11=paths11),
+                           offpolicy_cli=offpolicy_cli, paths11=paths11,
+                           elastic_resume=elastic),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

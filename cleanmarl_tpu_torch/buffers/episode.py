@@ -67,6 +67,20 @@ class EpisodeBuffer:
         return EpisodeBuffer(tree_map(lambda x: x[rows], self.data), self.length[rows],
                              self.cursor, self.size, self.capacity)
 
+    @staticmethod
+    def unshard(parts) -> "EpisodeBuffer":
+        """The single-process ring of the ranks' ``parts`` (rank order), the
+        inverse of ``shard``: global row ``i`` from rank ``i % world``'s row
+        ``i // world``. The ranks' scratch rows are dropped and the result's
+        is zero; ``cursor``, ``size`` and ``capacity`` must agree."""
+        cursor, size, cap = (dp.agreed([getattr(p, k) for p in parts], f"ring.{k}")
+                             for k in ("cursor", "size", "capacity"))
+
+        def merge(*xs):
+            return dp.unshard_rows([x[:-1] for x in xs], cap, scratch=True)
+        return EpisodeBuffer(tree_map(merge, *[p.data for p in parts]),
+                             merge(*[p.length for p in parts]), cursor, size, cap)
+
     def sample(self, generator, batch_size: int) -> Tuple[Any, torch.Tensor]:
         """→ (records (B, T_max, ...), mask (B, T_max) f32), uniform over the
         stored episodes. ``idx < size <= capacity``, so the scratch row is
@@ -108,6 +122,14 @@ class EpisodeAccumulator:
         """Rank ``rank``'s envs of this single-process accumulator."""
         return EpisodeAccumulator(tree_map(lambda x: dp.interleaved(x, rank, world),
                                            self.store), dp.interleaved(self.t, rank, world))
+
+    @staticmethod
+    def unshard(parts) -> "EpisodeAccumulator":
+        """The single-process accumulator of the ranks' ``parts`` (rank
+        order): global env ``j`` from rank ``j % world``."""
+        return EpisodeAccumulator(tree_map(lambda *xs: dp.uninterleaved(xs),
+                                           *[p.store for p in parts]),
+                                  dp.uninterleaved([p.t for p in parts]))
 
     def add_step(self, ring: EpisodeBuffer, record: Any, ended: torch.Tensor) -> int:
         """Append one step for every env and commit the episodes of the envs

@@ -66,6 +66,18 @@ class SequenceBuffer:
         return SequenceBuffer(tree_map(lambda x: x[rows], self.data), self.cursor,
                               self.size, self.capacity)
 
+    @staticmethod
+    def unshard(parts) -> "SequenceBuffer":
+        """The single-process ring of the ranks' ``parts`` (rank order), the
+        inverse of ``shard``: global row ``i`` from rank ``i % world``'s row
+        ``i // world``. The ranks' scratch rows are dropped and the result's
+        is zero; ``cursor``, ``size`` and ``capacity`` must agree."""
+        cursor, size, cap = (dp.agreed([getattr(p, k) for p in parts], f"ring.{k}")
+                             for k in ("cursor", "size", "capacity"))
+        return SequenceBuffer(tree_map(
+            lambda *xs: dp.unshard_rows([x[:-1] for x in xs], cap, scratch=True),
+            *[p.data for p in parts]), cursor, size, cap)
+
     def sample(self, generator, batch_size: int) -> Any:
         """→ records (B, L, ...), uniform over the stored chunks.
         ``idx < size <= capacity``, so the scratch row is never read. In a
@@ -108,6 +120,16 @@ class SequenceAccumulator:
             return tree_map(lambda x: dp.interleaved(x, rank, world), tree)
         return SequenceAccumulator(take(self.store), take(self.prev),
                                    dp.interleaved(self.t, rank, world))
+
+    @staticmethod
+    def unshard(parts) -> "SequenceAccumulator":
+        """The single-process accumulator of the ranks' ``parts`` (rank
+        order): global env ``j`` from rank ``j % world``."""
+        def merge(key):
+            return tree_map(lambda *xs: dp.uninterleaved(xs),
+                            *[getattr(p, key) for p in parts])
+        return SequenceAccumulator(merge("store"), merge("prev"),
+                                   dp.uninterleaved([p.t for p in parts]))
 
     def add_step(self, ring: SequenceBuffer, record: Any,
                  ended: torch.Tensor) -> Tuple[int, int]:

@@ -51,6 +51,16 @@ class TransitionBuffer:
         return TransitionBuffer(tree_map(lambda x: dp.interleaved(x, rank, world), self.data),
                                 self.cursor, self.size, self.capacity)
 
+    @staticmethod
+    def unshard(parts) -> "TransitionBuffer":
+        """The single-process ring of the ranks' ``parts`` (rank order), the
+        inverse of ``shard``; ``cursor``, ``size`` and ``capacity`` must
+        agree."""
+        cursor, size, cap = (dp.agreed([getattr(p, k) for p in parts], f"buffer.{k}")
+                             for k in ("cursor", "size", "capacity"))
+        return TransitionBuffer(tree_map(lambda *xs: dp.unshard_rows(xs, cap),
+                                         *[p.data for p in parts]), cursor, size, cap)
+
     def add_batch(self, batch: Any) -> None:
         """Write a batch (leading axis B, this rank's envs) at the cursor, in
         place."""

@@ -99,12 +99,15 @@ def run_training(
     if ckpt_dir:
         from cleanmarl_tpu_torch.core.checkpoint import Checkpointer
 
-        ckpt = Checkpointer(ckpt_dir)
+        ckpt = Checkpointer(ckpt_dir, field_dims=data_field_dims, seed=cfg.seed)
         if getattr(cfg, "resume", False) and ckpt.latest_step() is not None:
-            runner = ckpt.restore(runner)
+            written = ckpt.meta()["world"]
+            runner = ckpt.restore(runner)      # at any world size the layout allows
             done_steps = steps_of(runner)
             if is_main:
-                print(f"[{algo_name}] resumed from step {ckpt.latest_step()}", flush=True)
+                moved = f" (written by {written} ranks, now {world})" if written != world else ""
+                print(f"[{algo_name}] resumed from step {ckpt.latest_step()}{moved}",
+                      flush=True)
 
     # a resumed run trains only the REMAINING budget, so interrupt+resume
     # completes exactly total_timesteps overall

@@ -5,6 +5,7 @@ from cleanmarl_tpu_torch.distributed.dp import (
     global_sum,
     replicate,
     shard_runner,
+    unshard_runners,
 )
 from cleanmarl_tpu_torch.distributed.multihost import is_main_process, maybe_initialize
 
@@ -17,4 +18,5 @@ __all__ = [
     "maybe_initialize",
     "replicate",
     "shard_runner",
+    "unshard_runners",
 ]

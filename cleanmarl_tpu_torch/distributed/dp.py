@@ -47,12 +47,17 @@ commit or a sample moves cost a device→host copy on gloo.
 
 ``DATA_FIELD_DIMS`` is the JAX table of per-env runner fields; a ring or
 accumulator in it shards by its own ``shard(rank, world)``.
+``shard_runner`` cuts a single-process runner into a rank's share and
+``unshard_runners`` puts the ranks' shares back together, so a checkpoint
+written by ``n`` ranks restores at any world the layout allows
+(``core/checkpoint.py``).
 ``make_mesh``, ``runner_pspecs`` and ``runner_shardings`` describe XLA
 shardings and have no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -98,6 +103,20 @@ def rank_seed(seed: int, rank: int) -> int:
     return seed if rank == 0 else seed + 1 + rank
 
 
+def resume_seed(seed: int, rank: int, world: int, step: int) -> int:
+    """Seed of the new generator of rank ``rank`` when a checkpoint of step
+    ``step``, written by fewer ranks, is restored at ``world`` ranks. Its
+    low 32 bits lie in ``[seed + 2**31, seed + 2**31 + 2**30)`` modulo
+    2**32, so they are never those of an init generator (``rank_seed``:
+    ``seed + j``, ``j < 2**30``) or of the eval generator (``seed + 1``);
+    the new ranks of one restore differ by their rank, and ``(world,
+    step)`` choose the offset, so the streams of a restore at another
+    world or step differ but for a 2**-30 chance."""
+    mix = int.from_bytes(hashlib.blake2b(f"{world}:{step}".encode(), digest_size=8).digest(),
+                         "little")
+    return (seed + 2**31 + (mix + rank) % 2**30) % 2**32
+
+
 def check_layout(num_envs: int, num_minibatches: int, world: int) -> int:
     """→ the envs of one rank; raises unless every minibatch splits evenly
     over the ranks."""
@@ -128,6 +147,48 @@ def owned_rows(capacity: int, rank: int, world: int) -> int:
 def interleaved(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
     """Rows ``rank, rank + world, ...`` of ``x`` (axis 0)."""
     return x[rank::world].clone()
+
+
+def uninterleaved(parts: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The inverse of ``interleaved``: ``parts[k]`` (rank order) holds
+    entries ``k, k + world, ...`` of the result along axis ``dim``."""
+    world, n = len(parts), sum(p.shape[dim] for p in parts)
+    if [p.shape[dim] for p in parts] != [len(range(k, n, world)) for k in range(world)]:
+        raise ValueError(f"{world} ranks' extents {[p.shape[dim] for p in parts]} on axis "
+                         f"{dim} are not an interleave of {n}")
+    shape = list(parts[0].shape)
+    shape[dim] = n
+    out = parts[0].new_empty(shape)
+    for k, p in enumerate(parts):
+        out[(slice(None),) * dim + (slice(k, None, world),)] = p
+    return out
+
+
+def unshard_rows(parts: Sequence[torch.Tensor], capacity: int,
+                 scratch: bool = False) -> torch.Tensor:
+    """The ``capacity`` global rows of a ring from the ranks' own rows (row
+    ``i`` from rank ``i % world`` at ``i // world``), and with ``scratch``
+    one zero scratch row after them."""
+    rows = uninterleaved(parts)
+    if rows.shape[0] != capacity:
+        raise ValueError(f"the ranks hold {rows.shape[0]} ring rows, not the {capacity} "
+                         f"of the ring's capacity")
+    return torch.cat([rows, torch.zeros_like(rows[:1])]) if scratch else rows
+
+
+def agreed(values: Sequence[Any], what: str) -> Any:
+    """The one value that every rank holds; raises naming ``what`` unless
+    all are equal (tensors: dtype, shape and every bit)."""
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                    and a.shape == b.shape and torch.equal(a, b))
+        return type(a) is type(b) and a == b
+    if not all(same(values[0], v) for v in values[1:]):
+        shown = values if not isinstance(values[0], torch.Tensor) else "tensors"
+        raise ValueError(f"{what} differs across the {len(values)} ranks ({shown}); it must "
+                         f"be equal on every rank")
+    return values[0]
 
 
 @dataclasses.dataclass
@@ -259,7 +320,8 @@ def shard_runner(runner, field_dims: Dict[str, int], rank: int, world: int):
     ``owned_rows``, accumulator rows by env). A 0-d tensor in a per-env
     field is an additive partial sum (``EpisodeStats`` block sums): rank 0
     keeps it, the others start at zero, so the sums over the ranks are the
-    full runner's. Replicated fields are shared; the generator is copied."""
+    full runner's. Replicated fields are shared; the generator is copied.
+    ``unshard_runners`` is the inverse."""
     def take(field, d):
         def leaf(x):
             if hasattr(x, "shard"):
@@ -281,10 +343,64 @@ def shard_runner(runner, field_dims: Dict[str, int], rank: int, world: int):
         if f.name in field_dims:
             out[f.name] = tree_map(take(f.name, field_dims[f.name]), value)
         elif isinstance(value, torch.Generator):
-            gen = torch.Generator(value.device)
-            gen.set_state(value.get_state())
-            out[f.name] = gen
+            out[f.name] = copy_generator(value)
     return dataclasses.replace(runner, **out)
+
+
+def copy_generator(g: torch.Generator) -> torch.Generator:
+    out = torch.Generator(g.device)
+    out.set_state(g.get_state())
+    return out
+
+
+def unshard_runners(parts: Sequence[Any], field_dims: Dict[str, int]):
+    """The single-process runner of the ranks' shares ``parts`` (rank
+    order), the inverse of ``shard_runner``: each per-env leaf
+    re-interleaved on its env axis (global env ``j`` from rank ``j %
+    world``), a ring or an accumulator through its own ``unshard``, each
+    0-d partial sum added over the ranks. Replicated fields (params,
+    targets, optimizer state, value-norm stats, ``last_*``) and host
+    counters must be equal on every rank, else this raises naming the
+    field; the generator is a copy of rank 0's. Scratch rows aside,
+    ``unshard_runners([shard_runner(r, d, k, w) for k in range(w)], d)``
+    is ``r``."""
+    def merge(field, d):
+        def leaf(*xs):
+            x = xs[0]
+            if hasattr(x, "unshard"):
+                return type(x).unshard(list(xs))
+            if not isinstance(x, torch.Tensor):
+                return agreed(xs, field)
+            if x.dim() == 0:
+                total = x.clone()
+                for y in xs[1:]:
+                    total = total + y
+                return total
+            return uninterleaved(xs, d)
+        return leaf
+
+    out = {}
+    for f in dataclasses.fields(parts[0]):
+        values = [getattr(p, f.name) for p in parts]
+        if f.name in field_dims:
+            out[f.name] = tree_map(merge(f.name, field_dims[f.name]), *values)
+        elif isinstance(values[0], torch.Generator):
+            out[f.name] = copy_generator(values[0])
+        else:
+            tree_map(lambda *xs, name=f.name: agreed(xs, name), *values)
+    return dataclasses.replace(parts[0], **out)
+
+
+def global_layout(runner, world: int) -> Dict[str, int]:
+    """The global extents that a runner's layout over ``world`` ranks
+    depends on: ``num_envs`` (a rank's envs times the ranks) and, on the
+    off-policy families, the ring's ``capacity`` (global already)."""
+    out = {"num_envs": int(runner.obs.shape[0]) * world}
+    for f in dataclasses.fields(runner):
+        cap = getattr(getattr(runner, f.name), "capacity", None)
+        if cap is not None:
+            out["capacity"] = int(cap)
+    return out
 
 
 def gather_flags(*flags: torch.Tensor) -> np.ndarray:

@@ -406,3 +406,100 @@ def check_driver_option(option, mod, cfg, workdir, ranks, monkeypatch):
     for a, b in zip(tree_leaves(r0.get("params", {})), tree_leaves(r1.get("params", {})),
                     strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# restore at another world size (tests/test_torch_elastic_resume.py)
+# ---------------------------------------------------------------------------
+
+def _kind(family):
+    """(module, config class, ``DATA_FIELD_DIMS`` key) of a family."""
+    from cleanmarl_tpu_torch.algos import coma, mappo
+
+    if family == "mappo":
+        return mappo, mappo.PPOConfig, "PPO"
+    if family == "coma":
+        return coma, coma.COMAConfig, "COMA"
+    mod, cls = _family(family)
+    return mod, cls, {"recq": "RECURRENT_Q"}.get(family, family.upper())
+
+
+def fresh(family, kw, rank=0):
+    """``make_train`` of ``family`` at this process's world and a fresh
+    ``global_runner_init`` → (train_block, meta, runner, fields table)."""
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS, dp
+
+    mod, cls, table = _kind(family)
+    cfg = cls(**kw, device="cpu")
+    init, train_block, _, meta = mod.make_train(cfg)
+    dims = DATA_FIELD_DIMS[table]
+    gen = torch.Generator().manual_seed(dp.rank_seed(cfg.seed, rank))
+    return train_block, meta, dp.global_runner_init(init, gen, dims), dims
+
+
+def checkpointer(workdir, name, wrote, dims, kw):
+    """The checkpoint directory of case ``name`` written by ``wrote`` ranks."""
+    import os
+
+    from cleanmarl_tpu_torch.core.checkpoint import Checkpointer
+
+    return Checkpointer(os.path.join(workdir, name, str(wrote)), field_dims=dims,
+                        seed=kw["seed"])
+
+
+def restored_update(family, rank, world, meta, runner, args):
+    """One update from a restored ``runner`` on this rank's share of a fixed
+    input: MAPPO's ``ppo_update`` on ``(traj, h0)`` (env axis interleaved),
+    recurrent Q's ``update`` on ``(batch, mask)`` (rows ``rank::world``)."""
+    if family == "mappo":
+        traj, h0 = args
+        traj_l = {k: _shard(v, rank, world, 1) for k, v in traj.items()}
+        traj_l["action"] = traj_l["action"].long()
+        out, metrics = meta["ppo_update"](runner, traj_l, _shard(h0, rank, world, 0))
+        return dict(actor_params=_np(out.actor_params), critic_params=_np(out.critic_params),
+                    vnorm=_np(out.vnorm), metrics={k: float(v) for k, v in metrics.items()},
+                    num_updates=out.num_updates)
+    batch, mask = args
+    b = {k: _shard(v, rank, world, 0) for k, v in batch.items()}
+    if b["action"].dtype == torch.int32:
+        b["action"] = b["action"].long()
+    out = meta["update"](runner.params, runner.target_params, runner.opt_state, b,
+                         _shard(mask, rank, world, 0))
+    return dict(params=_np(out[0]), metrics=[float(out[2]), float(out[3])])
+
+
+def elastic_save(rank, world, port, kinds, jax_jobs, workdir):
+    """Each ``kinds`` case: ``global_runner_init``, one block and a save by
+    the ``world`` ranks → this rank's runner as saved (``to_state``). Each
+    ``jax_jobs`` case: the single-process checkpoint restored at ``world``
+    ranks and saved again by them, then one update from it on this rank's
+    share → its result. Tensors come back as numpy arrays."""
+    from cleanmarl_tpu_torch.core.checkpoint import to_state
+
+    join(rank, world, port)
+    out = {}
+    for name, (family, kw) in kinds.items():
+        train_block, _, runner, dims = fresh(family, kw, rank)
+        runner, _ = train_block(runner)
+        checkpointer(workdir, name, world, dims, kw).save(runner.step, runner)
+        out[name] = _np(to_state(runner))
+    for name, (family, kw, args) in jax_jobs.items():
+        _, meta, template, dims = fresh(family, kw, rank)
+        ckpt = checkpointer(workdir, name, 1, dims, kw)
+        runner = ckpt.restore(template)
+        checkpointer(workdir, name, world, dims, kw).save(ckpt.latest_step(), runner)
+        out[name] = restored_update(family, rank, world, meta, runner, args)
+    return out
+
+
+def elastic_restore(rank, world, port, kinds, workdir):
+    """Each ``kinds`` case's single-process checkpoint restored at ``world``
+    ranks → this rank's runner (``to_state``, numpy arrays)."""
+    from cleanmarl_tpu_torch.core.checkpoint import to_state
+
+    join(rank, world, port)
+    out = {}
+    for name, (family, kw) in kinds.items():
+        _, _, template, dims = fresh(family, kw, rank)
+        out[name] = _np(to_state(checkpointer(workdir, name, 1, dims, kw).restore(template)))
+    return out

@@ -10,12 +10,12 @@
 - a resumed ``vdn.train`` trains only the remaining budget (512 → 1024 →
   1024 env steps), as the JAX driver's ``num_blocks`` rule does;
 - ``max_to_keep`` pruning; a half-written step is ignored; a template of
-  another shape raises naming the field; another world size raises;
+  another shape raises naming the field (a restore at another world size,
+  and the layouts it refuses, are in ``tests/test_torch_elastic_resume.py``);
 - ``use_wnb`` reaches ``wandb.init`` through the port's ``Logger``.
 
 The card's resume is checked by ``chip_smoke.py`` phase 9.
 """
-import json
 import os
 import sys
 import types
@@ -29,6 +29,7 @@ from cleanmarl_tpu_torch.algos import (
 from cleanmarl_tpu_torch.core.checkpoint import Checkpointer, to_state
 from cleanmarl_tpu_torch.core.driver import to_host
 from cleanmarl_tpu_torch.core.params import tree_leaves
+from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs.matrix_game import MatrixGame
 
 torch.set_num_threads(1)
@@ -64,6 +65,15 @@ FAMILIES = {
     "facmac": (facmac.make_train, facmac.FACMACConfig,
                dict(_SL, hyper_dim=8, embed_dim=4)),
 }
+# each family's table of per-env fields (dp.DATA_FIELD_DIMS)
+TABLES = {"mappo": "PPO", "coma": "COMA", "qmix": "QMIX", "vdn": "VDN",
+          "recurrent_q_episode": "RECURRENT_Q", "recurrent_q_sequence": "RECURRENT_Q",
+          "maddpg": "MADDPG", "facmac": "FACMAC"}
+
+
+def _checkpointer(path, family, **kw):
+    return Checkpointer(str(path), field_dims=dp.DATA_FIELD_DIMS[TABLES[family]],
+                        seed=FAMILIES[family][2]["seed"], **kw)
 
 
 def _flat(tree, path="runner"):
@@ -95,7 +105,7 @@ def test_resume_is_bit_exact(family, tmp_path):
     make_train, config, kw = FAMILIES[family]
     init, train_block, _, _ = make_train(config(**kw, device="cpu"))
     runner, _ = _block(train_block, init(torch.Generator().manual_seed(0)))
-    ckpt = Checkpointer(str(tmp_path))
+    ckpt = _checkpointer(tmp_path, family)
     step = runner.step
     ckpt.save(step, runner, wait=True)
     assert ckpt.latest_step() == step
@@ -115,7 +125,7 @@ def test_qmix_ring_and_accumulator_survive_exactly(tmp_path):
     init, train_block, _, _ = qmix.make_train(qmix.QMIXConfig(**kw, device="cpu"))
     runner, _ = _block(train_block, init(torch.Generator().manual_seed(0)))
     assert runner.ring.size > 0 and runner.update_debt > 0
-    ckpt = Checkpointer(str(tmp_path))
+    ckpt = _checkpointer(tmp_path, "qmix")
     ckpt.save(runner.step, runner)
     restored = ckpt.restore(init(torch.Generator().manual_seed(9)))
     for a, b in zip(tree_leaves(restored.ring.data), tree_leaves(runner.ring.data)):
@@ -161,7 +171,7 @@ def _small_runner():
 
 def test_max_to_keep_prunes_the_oldest(tmp_path):
     _, runner = _small_runner()
-    ckpt = Checkpointer(str(tmp_path), max_to_keep=2)
+    ckpt = _checkpointer(tmp_path, "coma", max_to_keep=2)
     for step in (10, 20, 30, 40):
         ckpt.save(step, runner)
     assert ckpt.all_steps() == [30, 40]
@@ -170,7 +180,7 @@ def test_max_to_keep_prunes_the_oldest(tmp_path):
 
 def test_half_written_step_is_ignored(tmp_path):
     init, runner = _small_runner()
-    ckpt = Checkpointer(str(tmp_path))
+    ckpt = _checkpointer(tmp_path, "coma")
     ckpt.save(10, runner)
     # a run killed while writing step 20: the temporary directory with a
     # partial file, and a step directory that never got its metadata
@@ -185,23 +195,13 @@ def test_half_written_step_is_ignored(tmp_path):
 
 def test_template_of_another_shape_raises_naming_the_field(tmp_path):
     _, runner = _small_runner()
-    ckpt = Checkpointer(str(tmp_path))
+    ckpt = _checkpointer(tmp_path, "coma")
     ckpt.save(10, runner)
     init8, _, _, _ = coma.make_train(coma.COMAConfig(**dict(FAMILIES["coma"][2], num_envs=8),
                                                      device="cpu"))
     with pytest.raises(ValueError, match=r"runner\.env_state\.t: shape \(4,\) in the file, "
                        r"\(8,\) in the runner"):
         ckpt.restore(init8(torch.Generator().manual_seed(0)))
-
-
-def test_another_world_size_raises(tmp_path):
-    init, runner = _small_runner()
-    ckpt = Checkpointer(str(tmp_path))
-    ckpt.save(10, runner)
-    meta = tmp_path / "10" / "meta.json"
-    meta.write_text(json.dumps({"step": 10, "world": 2}))
-    with pytest.raises(ValueError, match="written by 2 rank"):
-        ckpt.restore(init(torch.Generator().manual_seed(0)))
 
 
 def test_use_wnb_reaches_wandb_init(monkeypatch, tmp_path):
