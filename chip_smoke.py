@@ -145,6 +145,20 @@ Phases, each of which must pass:
    ranks; sizes, save and restore seconds beside the same-world restores
    of phases 9 and 10, and both blocks' env-steps/s (``*_resume_2to1``
    and ``*_resume_1to2`` in ``launches_by_path``: the first block's).
+13. Every optax optimizer the JAX package trains with
+   (``core/optim.py``, ``core/optim_transforms.py``; no kernel of its
+   own): (a) each name's 3 updates, clip and LR anneal on where optax
+   allows them, on the card against the CPU (params and state) on a tree
+   with a 128 x 384 leaf that Adafactor factors, ``noisy_sgd`` by its
+   noise's variance and the same noise for the same count; (b) each
+   name's MAPPO update at the main path's width (the median of three
+   rounds, every name in turn) and its ratio to Adam's, and one optimizer
+   step alone with its device ops and device ms; (c) the main path and ``qmix_rnn_3m`` driven with ``rmsprop``
+   (one update each card vs CPU, a warm-up and a timed block, env-steps/s
+   beside the same drive with Adam right after it, K1/K2/K3/dw counts
+   equal to their launches per update: ``mappo_rmsprop`` and
+   ``qmix_rnn_3m_rmsprop`` in ``launches_by_path``); (d) a bitwise
+   ``rmsprop`` resume of the main path.
 
 ``--dp_ranks N`` (N cards) builds the kernels and runs only phase 10's
 rank checks over N ranks (nccl with a card each) and recurrent QMIX and
@@ -867,9 +881,10 @@ def check_gru(results):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def check_update_against_cpu():
+def check_update_against_cpu(optimizer: str = "adam", tag: str = "main"):
     """One PPO update on the card (kernels) equals the same update on the
-    CPU (plain versions), from the same params and trajectory."""
+    CPU (plain versions), from the same params and trajectory, with the
+    optimizer ``optimizer``."""
     import torch
     from cleanmarl_tpu_torch.algos.mappo import make_train
     from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
@@ -877,7 +892,7 @@ def check_update_against_cpu():
 
     small = dict(BENCH, num_envs=16, rollout_len=12, actor_hidden_dim=32,
                  critic_hidden_dim=32, epochs=2, num_minibatches=2,
-                 normalize_advantage=True)
+                 normalize_advantage=True, optimizer=optimizer)
     init_c, _, _, meta_c = make_train(PPOConfig(**small, device="cpu"))
     _, _, _, meta_g = make_train(PPOConfig(**small, device="cuda"))
     runner = init_c(torch.Generator().manual_seed(0))
@@ -905,7 +920,9 @@ def check_update_against_cpu():
                     tree_leaves(out_c.actor_params) + tree_leaves(out_c.critic_params)):
         if not torch.allclose(a.cpu(), b, **PPO_TOL):
             fail("PPO update on the card disagrees with the CPU on the params")
-    log(f"[main] one PPO update, card vs CPU: metrics agree (max |diff| {worst:.3e})")
+    log(f"[{tag}] one PPO update ({optimizer}), card vs CPU: metrics agree (max |diff| "
+        f"{worst:.3e})")
+    return worst
 
 
 def main_path_kernels(counters):
@@ -1316,19 +1333,19 @@ def _recq_batch(cfg, env, seed):
     return batch, torch.as_tensor((np.arange(T)[None] < lengths).astype(np.float32))
 
 
-def _recq(name, device):
+def _recq(name, device, table=None):
     from cleanmarl_tpu_torch.algos import recurrent_q
 
-    cfg = recurrent_q.RecurrentQConfig(**RECQ[name], device=device)
+    cfg = recurrent_q.RecurrentQConfig(**(table or RECQ)[name], device=device)
     return cfg, recurrent_q.make_train(cfg)
 
 
-def check_recq_updates_against_cpu():
-    """One update of each recipe on the card (kernel route, TF32 off)
-    equals the same update on the CPU (scan route), from the same params,
-    Adam state (after one update on the CPU) and batch of the recipe's
-    widths: 32 episodes padded to 150 steps, or 32 chunks of 10 with a
-    burn-in of 8."""
+def check_recq_updates_against_cpu(table=None, tag="recq"):
+    """One update of each recipe of ``table`` (RECQ) on the card (kernel
+    route, TF32 off) equals the same update on the CPU (scan route), from
+    the same params, optimizer state (after one update on the CPU) and
+    batch of the recipe's widths: 32 episodes padded to 150 steps, or 32
+    chunks of 10 with a burn-in of 8. → {name: max |diff|}."""
     import torch
     from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
     from cleanmarl_tpu_torch.envs import registry
@@ -1336,9 +1353,10 @@ def check_recq_updates_against_cpu():
     def to_cuda(x):
         return x.cuda() if isinstance(x, torch.Tensor) else x
     env = registry.make("smaclite", "3m", agent_ids=True)
-    for name in RECQ:
-        cfg, (init_c, _, _, meta_c) = _recq(name, "cpu")
-        _, (_, _, _, meta_g) = _recq(name, "cuda")
+    out = {}
+    for name in (table or RECQ):
+        cfg, (init_c, _, _, meta_c) = _recq(name, "cpu", table)
+        _, (_, _, _, meta_g) = _recq(name, "cuda", table)
         if (meta_c["gru_impl"], meta_g["gru_impl"]) != ("scan", "kernel"):
             fail(f"{name}: GRU routes {meta_c['gru_impl']} (CPU) / {meta_g['gru_impl']} (card)")
         key = "update_seq" if cfg.replay == "sequence" else "update"
@@ -1353,9 +1371,11 @@ def check_recq_updates_against_cpu():
         worst = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
         if not all(torch.allclose(a.cpu(), b, **PPO_TOL) for a, b in pairs):
             fail(f"{name} update on the card disagrees with the CPU (max |diff| {worst})")
-        log(f"[recq] one {name} update, card (kernels) vs CPU (scan): loss {float(loss_g):.6f} "
+        log(f"[{tag}] one {name} update, card (kernels) vs CPU (scan): loss {float(loss_g):.6f} "
             f"vs {float(loss_c):.6f}, grad norm {float(gn_g):.6f} vs {float(gn_c):.6f}, "
             f"max |diff| over loss, norm and params {worst:.3e}")
+        out[name] = worst
+    return out
 
 
 def recq_clock(cfg, runner, origin) -> int:
@@ -2243,9 +2263,10 @@ def compare_runners(a, b, what):
     return not differ, differ
 
 
-def check_resume():
-    """Recurrent MAPPO on 3m at the main path's widths: one block, a save, a
-    restore into an init of another seed, then one more block from both."""
+def check_resume(optimizer: str = "adam", tag: str = "resume"):
+    """Recurrent MAPPO on 3m at the main path's widths with ``optimizer``:
+    one block, a save, a restore into an init of another seed, then one
+    more block from both."""
     import shutil
     import tempfile
 
@@ -2256,7 +2277,7 @@ def check_resume():
     from cleanmarl_tpu_torch.core.driver import to_host
     from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS
 
-    cfg = PPOConfig(**BENCH, device="cuda")
+    cfg = PPOConfig(**dict(BENCH, optimizer=optimizer), device="cuda")
     init, train_block, _, _ = make_train(cfg)
     runner, _ = train_block(init(torch.Generator("cuda").manual_seed(0)))
     work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
@@ -2287,7 +2308,7 @@ def check_resume():
         fail(f"resumed block's metrics differ: {ma} vs {mb}")
     state = ("bitwise identical" if bitwise else
              f"within {RESUME_TOL}, not bitwise at {differ}")
-    log(f"[resume] checkpoint of {BENCH['num_envs']} envs at step {runner.step}: "
+    log(f"[{tag}] {optimizer}: checkpoint of {BENCH['num_envs']} envs at step {runner.step}: "
         f"{size / 2**20:.2f} MiB, save {save_s:.3f} s, restore {restore_s:.3f} s; resumed "
         f"block ends at step {b.step} (uninterrupted {a.step}); params, optimizer moments, "
         f"env state, generators and counters {state}")
@@ -3538,6 +3559,343 @@ def check_elastic_resume(card, same_world):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: every optax optimizer the JAX package trains with (core/optim.py)
+# ---------------------------------------------------------------------------
+
+# (a) a tree with the main path's kinds of leaves, its GRU recurrent weight
+# at H=128 (128 x 384: Adafactor factors it) among them; P13_STEPS updates
+# with clip and the LR anneal on (clip only for the names optax refuses
+# under a schedule), card against CPU. Elementwise ops are the same float32
+# ops on both; norms (clip, trust ratios) sum in another order, rsqrt is
+# not correctly rounded on the card
+P13_TREE = {"gru": {"wi": (40, 384), "wh": (128, 384), "bi": (384,)},
+            "head": {"w": (128, 10), "b": (10,)}}
+P13_LR, P13_CLIP, P13_ANNEAL, P13_STEPS = 1e-3, 0.5, 10, 3
+P13_TOL = dict(rtol=1e-5, atol=1e-6)
+# noisy_sgd: the card's and the CPU's generators draw different noise, so
+# the card is held by the noise's variance eta / (1 + count)^gamma (optax's
+# defaults eta 0.01, gamma 0.55) over the 49,152 entries of wh: the sample
+# variance's standard error is 0.64 %
+P13_NOISE = dict(eta=0.01, gamma=0.55, rel_tol=0.05)
+# (c) the two recipes driven with the QMIX paper's optimizer, optax's
+# defaults: the main path (BENCH) and scripts/validate_baselines.py's
+# qmix_rnn_3m (RECQ)
+# (b) rounds that time one MAPPO update of every name in turn: one update's
+# wall spread by 25-35 % within one call on an H100's shared host, and
+# rounds in turn spread the host's drift over every name alike
+P13_ROUNDS = 3
+P13_RECQ = {"qmix_rnn_3m_rmsprop": dict(RECQ["qmix_rnn_3m"], optimizer="rmsprop")}
+
+
+def _p13_tree(rng, scale=1.0):
+    import torch
+
+    return {k: {n: torch.as_tensor((scale * rng.randn(*shape)).astype("float32"))
+                for n, shape in v.items()} for k, v in P13_TREE.items()}
+
+
+def check_optimizers_card_vs_cpu():
+    """(a) Every name of ``core/optim.SUPPORTED``: P13_STEPS updates on the
+    card and on the CPU from the same params and gradients; params and
+    optimizer state held to P13_TOL, counts equal; Adafactor's state
+    factored at wh. ``noisy_sgd`` on the card by its distribution: (noisy
+    − sgd) / −lr has the variance eta / (1 + count)^gamma, and the same
+    count draws the same noise. → {name: max |diff|}."""
+    import numpy as np
+    import torch
+    from cleanmarl_tpu_torch.core import optim
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+
+    rng = np.random.RandomState(13)
+    params = _p13_tree(rng)
+    grads = [_p13_tree(rng, 1.0 if k % 2 else 0.05) for k in range(P13_STEPS)]
+
+    def run(opt, device):
+        p = tree_map(lambda x: x.to(device), params)
+        s = opt.init(p)
+        for g in grads:
+            p, s = opt.update(tree_map(lambda x: x.to(device), g), s, p)
+        return p, s
+
+    out = {}
+    for name in optim.SUPPORTED:
+        if name == "noisy_sgd":
+            continue
+        anneal = 0 if name in optim.NO_SCHEDULE else P13_ANNEAL
+        opt = optim.make_optimizer(name, P13_LR, P13_CLIP, anneal)
+        (pg, sg), (pc, sc) = run(opt, "cuda"), run(opt, "cpu")
+        if sg["count"] != sc["count"] or sc["count"] != P13_STEPS:
+            fail(f"[p13] {name}: counts {sg['count']} (card) and {sc['count']} (CPU)")
+        pairs = list(zip(tree_leaves((pg, sg)), tree_leaves((pc, sc))))
+        worst = max(float((a.cpu() - b).abs().max()) for a, b in pairs
+                    if isinstance(a, torch.Tensor))
+        if not all(torch.allclose(a.cpu(), b, **P13_TOL) for a, b in pairs
+                   if isinstance(a, torch.Tensor)):
+            fail(f"[p13] {name}: {P13_STEPS} updates on the card disagree with the CPU "
+                 f"(max |diff| {worst:.3e})")
+        out[name] = worst
+    fac = optim.make_optimizer("adafactor", P13_LR).init(params)["adafactor"]
+    if tuple(fac["v_row"]["gru"]["wh"].shape) != (128,) or fac["v"]["gru"]["wh"].numel() != 1:
+        fail("[p13] adafactor did not factor the 128 x 384 leaf")
+
+    eta, gamma = P13_NOISE["eta"], P13_NOISE["gamma"]
+    noisy = optim.make_optimizer("noisy_sgd", P13_LR, P13_CLIP, P13_ANNEAL)
+    sgd = optim.make_optimizer("sgd", P13_LR, P13_CLIP, P13_ANNEAL)
+    p = tree_map(lambda x: x.cuda(), params)
+    s_n, s_s = noisy.init(p), sgd.init(p)
+    ratios = []
+    for c, g in enumerate(grads):
+        g = tree_map(lambda x: x.cuda(), g)
+        pn, s_n2 = noisy.update(g, s_n, p)
+        ps, s_s = sgd.update(g, s_s, p)
+        again, _ = noisy.update(g, s_n, p)
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(again), tree_leaves(pn))):
+            fail(f"[p13] noisy_sgd drew other noise for the same count {c}")
+        noise = (pn["gru"]["wh"] - ps["gru"]["wh"]) / -noisy.step_size(c)
+        ratio = float(noise.var()) / (eta / (1 + c) ** gamma)
+        if abs(ratio - 1.0) > P13_NOISE["rel_tol"]:
+            fail(f"[p13] noisy_sgd's noise variance at count {c} is {ratio:.4f} x "
+                 f"eta / (1 + count)^gamma")
+        ratios.append(ratio)
+        s_n = s_n2
+    log(f"[p13] {len(out)} optimizers, {P13_STEPS} updates with clip {P13_CLIP} and anneal "
+        f"{P13_ANNEAL} (clip only: {', '.join(optim.NO_SCHEDULE)}), card vs CPU within "
+        f"{P13_TOL}: worst max |diff| {max(out.values()):.3e} ({max(out, key=out.get)}); "
+        f"adafactor factored the 128 x 384 leaf; noisy_sgd's noise variance / eta(1+c)^-gamma "
+        f"on the card {', '.join(f'{r:.4f}' for r in ratios)}, the same noise for the same "
+        f"count")
+    return dict(max_abs_err=out, noisy_sgd_variance_ratio=ratios)
+
+
+def time_optimizers_on_main_path(card):
+    """(b) One MAPPO update (8 epochs x 8 minibatches = 64 optimizer steps
+    of actor and critic) at the main path's width for every name, from the
+    same runner and rollout: one warm-up update each (its metrics finite,
+    its count 64), then P13_ROUNDS rounds that time one update of every
+    name in turn; a name's time is the median of its rounds, and its ratio
+    is to Adam's median. Beside it one optimizer step alone (actor +
+    critic, the mean of 10), and its device ops and device ms a step under
+    ``torch.profiler`` over 5 steps after a discarded warm-up step (a lone
+    short profiled call can lose its records).
+    → {name: dict(update_ms, update_walls_ms, ratio, step_ms, step_ops,
+    step_device_ms)}."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from cleanmarl_tpu_torch.algos.mappo import make_train
+    from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
+    from cleanmarl_tpu_torch.core import optim
+    from cleanmarl_tpu_torch.core.driver import to_host
+    from cleanmarl_tpu_torch.core.params import tree_map
+
+    base = PPOConfig(**BENCH, device="cuda")
+    init, _, _, meta = make_train(base)
+    runner, traj, h0 = meta["collect_rollout"](init(torch.Generator("cuda").manual_seed(0)))
+    params = (runner.actor_params, runner.critic_params)
+    g = torch.Generator("cuda").manual_seed(1)
+    grads = [tree_map(lambda x: 1e-2 * torch.randn(x.shape, generator=g, device="cuda"), p)
+             for p in params]
+    ready = {}
+    for name in optim.SUPPORTED:
+        cfg = PPOConfig(**dict(BENCH, optimizer=name), device="cuda")
+        _, _, _, m = make_train(cfg)
+        opts = [optim.make_optimizer(name, lr, cfg.clip_gradients)
+                for lr in (cfg.learning_rate_actor, cfg.learning_rate_critic)]
+        states = [o.init(p) for o, p in zip(opts, params)]
+        r = runner.replace(actor_opt=states[0], critic_opt=states[1])
+        upd, metrics = m["ppo_update"](r, traj, h0)
+        metrics = to_host(metrics)
+        bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+        if bad or upd.actor_opt["count"] != cfg.epochs * cfg.num_minibatches:
+            fail(f"[p13] {name}: the main-path update gave {bad or upd.actor_opt['count']}")
+        ready[name] = (m, opts, states, r)
+        del upd
+    walls = {name: [] for name in ready}
+    for _ in range(P13_ROUNDS):
+        for name, (m, _, _, r) in ready.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = m["ppo_update"](r, traj, h0)
+            to_host(metrics)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    adam_ms = statistics.median(walls["adam"])
+    out = {}
+    for name, (_, opts, states, _) in ready.items():
+        def step():
+            for o, gr, st, p in zip(opts, grads, states, params):
+                o.update(gr, st, p)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e2
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            prof.step()
+        kernels = device_kernels(prof)
+        ops = sum(c for _, c in kernels.values()) / 5
+        if ops == 0:
+            fail(f"[p13] {name}: the profiler recorded no device op in 5 optimizer steps")
+        update_ms = statistics.median(walls[name])
+        out[name] = dict(update_ms=update_ms, update_walls_ms=walls[name],
+                         ratio=update_ms / adam_ms, step_ms=step_ms, step_ops=ops,
+                         step_device_ms=sum(sec for sec, _ in kernels.values()) * 1e3 / 5)
+    ready.clear()
+    log(f"[p13] {card}: one MAPPO update at the main path's width (64 optimizer steps of actor "
+        f"and critic), the median wall ms of {P13_ROUNDS} rounds (every name in turn) and its "
+        f"ratio to adam's; one optimizer step alone (actor + critic): wall ms, device ops, "
+        f"device ms:")
+    for name, o in out.items():
+        log(f"[p13]   {name:28s} update {o['update_ms']:9.3f} ms  x{o['ratio']:.3f}   step "
+            f"{o['step_ms']:7.3f} ms {o['step_ops']:5.0f} ops {o['step_device_ms']:7.4f} ms  "
+            f"(walls {', '.join(f'{w:.3f}' for w in o['update_walls_ms'])})")
+    return out
+
+
+def _reset(counters):
+    for table in counters:
+        for k in table:
+            table[k] = 0
+
+
+def p13_drive_mappo(counters, optimizer):
+    """(c) The main path with ``optimizer``: one warm-up block (with init),
+    one timed block, one eval; every count set to 0 before init and read
+    after eval: K1 once per PPO update, K2, K3 and dw once per minibatch
+    (each ``num_updates``)."""
+    import torch
+    from cleanmarl_tpu_torch.algos.mappo import make_train
+    from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    cfg = PPOConfig(**dict(BENCH, optimizer=optimizer), device="cuda")
+    init, train_block, eval_fn, meta = make_train(cfg)
+    torch.cuda.synchronize()
+    _reset(counters)
+    t0 = time.perf_counter()
+    runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
+    runner, metrics = train_block(runner)
+    warm = to_host(metrics)
+    t1 = time.perf_counter()
+    runner, metrics = train_block(runner)
+    metrics = to_host(metrics)
+    t2 = time.perf_counter()
+    evals = to_host(eval_fn(runner.actor_params, torch.Generator("cuda").manual_seed(1)))
+    torch.cuda.synchronize()
+    launches = {k: v for table in counters for k, v in table.items()}
+    n_ppo = runner.num_updates // (cfg.epochs * cfg.num_minibatches)
+    want = dict(dict.fromkeys(launches, 0), lambda_returns=n_ppo,
+                gru_seq_fwd=runner.num_updates, gru_seq_bwd=runner.num_updates,
+                gru_seq_dw=runner.num_updates)
+    if launches != want or n_ppo == 0:
+        fail(f"[p13] mappo {optimizer}: launches {launches}, expected {want}")
+    for k, v in {**warm, **metrics, **evals}.items():
+        if not math.isfinite(v):
+            fail(f"[p13] mappo {optimizer}: non-finite metric {k}={v}")
+    sps = meta["steps_per_block"] / (t2 - t1)
+    log(f"[p13] mappo {optimizer}: warm-up block (incl. init) {t1 - t0:.3f} s, timed block "
+        f"{t2 - t1:.3f} s, env-steps/s {sps:.1f}; launches {launches} = K1 once per PPO "
+        f"update ({n_ppo}), K2/K3/dw once per minibatch ({runner.num_updates}); last block "
+        f"{json.dumps(metrics, sort_keys=True)}; eval {json.dumps(evals, sort_keys=True)}")
+    return dict(env_steps_per_s=sps, block_s=t2 - t1, launches=launches, metrics=metrics,
+                eval=evals, ppo_updates=n_ppo, num_updates=runner.num_updates)
+
+
+def p13_drive_recq(counters, optimizer):
+    """(c) qmix_rnn_3m with ``optimizer``: blocks (the first with init)
+    until the updates have started, then one timed block and one eval,
+    every count set to 0 before init and read after eval: K2 twice per
+    update (target and online streams), K3 and dw once, no K1."""
+    import torch
+    from cleanmarl_tpu_torch.core.driver import to_host
+
+    name = f"qmix_rnn_3m_{optimizer}"
+    table = {name: dict(RECQ["qmix_rnn_3m"], optimizer=optimizer)}
+    cfg, (init, train_block, eval_fn, meta) = _recq(name, "cuda", table)
+    torch.cuda.synchronize()
+    _reset(counters)
+    t0 = time.perf_counter()
+    runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
+    seen, n_warm = [], 0
+    while runner.num_updates == 0:
+        runner, metrics = train_block(runner)
+        seen.append(to_host(metrics))
+        n_warm += 1
+        if n_warm > 6:
+            fail(f"[p13] {name}: no update after {n_warm} warm-up blocks")
+    t1 = time.perf_counter()
+    n0 = runner.num_updates
+    runner, metrics = train_block(runner)
+    seen.append(to_host(metrics))
+    t2 = time.perf_counter()
+    evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
+    torch.cuda.synchronize()
+    launches = {k: v for table in counters for k, v in table.items()}
+    n = runner.num_updates
+    want = dict(dict.fromkeys(launches, 0), gru_seq_fwd=2 * n, gru_seq_bwd=n, gru_seq_dw=n)
+    if launches != want or n == n0:
+        fail(f"[p13] {name}: launches {launches} after {n} updates ({n - n0} timed), "
+             f"expected {want}")
+    for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
+        if not math.isfinite(v):
+            fail(f"[p13] {name}: non-finite metric {k}={v}")
+    if runner.opt_state["count"] != n:
+        fail(f"[p13] {name}: optimizer count {runner.opt_state['count']} after {n} updates")
+    sps = meta["steps_per_block"] / (t2 - t1)
+    log(f"[p13] {name}: {n_warm} warm-up block(s) (incl. init) {t1 - t0:.3f} s, timed block "
+        f"{t2 - t1:.3f} s with {n - n0} updates, env-steps/s {sps:.1f}; launches {launches} = "
+        f"K2 2x, K3 and dw 1x the {n} updates; last block "
+        f"{json.dumps(seen[-1], sort_keys=True)}; eval {json.dumps(evals, sort_keys=True)}")
+    return dict(env_steps_per_s=sps, block_s=t2 - t1, updates=n - n0, num_updates=n,
+                launches=launches, metrics=seen[-1], eval=evals)
+
+
+def check_optimizers(card, counters):
+    """Phase 13: (a) card vs CPU for every name, (b) each name's cost on
+    the main path, (c) the main path and qmix_rnn_3m driven with rmsprop,
+    each with one update card vs CPU, and with adam right after it for the
+    comparison in the same place of the run, (d) a bitwise rmsprop
+    resume."""
+    lap = time.perf_counter()
+
+    def lap_s():
+        nonlocal lap
+        lap, dt = time.perf_counter(), time.perf_counter() - lap
+        return f"{dt:.1f} s"
+    card_vs_cpu = check_optimizers_card_vs_cpu()
+    log(f"[p13] (a) in {lap_s()}")
+    cost = time_optimizers_on_main_path(card)
+    log(f"[p13] (b) in {lap_s()}")
+    update_err = {"mappo_rmsprop": check_update_against_cpu("rmsprop", "p13"),
+                  **check_recq_updates_against_cpu(P13_RECQ, "p13")}
+    driven = {f"{path}_{opt}": drive(counters, opt)
+              for path, drive in (("mappo", p13_drive_mappo), ("qmix_rnn_3m", p13_drive_recq))
+              for opt in ("rmsprop", "adam")}
+    for path in ("mappo", "qmix_rnn_3m"):
+        a, b = driven[f"{path}_rmsprop"], driven[f"{path}_adam"]
+        log(f"[p13] {card}: {path} rmsprop {a['env_steps_per_s']:,.1f} env-steps/s against "
+            f"adam {b['env_steps_per_s']:,.1f} driven right after it "
+            f"(x{a['env_steps_per_s'] / b['env_steps_per_s']:.3f})")
+    log(f"[p13] (c) in {lap_s()}")
+    resume = check_resume("rmsprop", "p13")
+    if not resume["bitwise"]:
+        fail(f"[p13] the rmsprop resume is not bitwise: {resume['differ']}")
+    log(f"[p13] (d) in {lap_s()}")
+    return dict(card_vs_cpu=card_vs_cpu, main_path_cost=cost, update_max_abs_err=update_err,
+                driven=driven, resume=resume)
+
+
 def check_dp_ranks(world):
     """``--dp_ranks``: phase 10's rank checks (commit, one-step updates, the
     driven paths) over ``world`` ranks, one a card when there are as many
@@ -3700,6 +4058,11 @@ def main():
                                           "qmix_rnn_3m": dict(offpolicy_resume, phase=10)})
     log(f"[p12] phase 12 in {time.perf_counter() - t12:.1f} s")
 
+    # phase 13: every optax optimizer the JAX package trains with
+    t13 = time.perf_counter()
+    optimizers = check_optimizers(card, counters)
+    log(f"[p13] phase 13 in {time.perf_counter() - t13:.1f} s")
+
     by_path = {"mappo": main_path["launches"],
                **{k: v["launches"] for k, v in {**recq, **paths7, **paths8}.items()},
                "host_ippo": dict(dict.fromkeys(KERNEL_KEYS, 0), **host_route["launches"]),
@@ -3709,7 +4072,9 @@ def main():
                "validate": {k: sum(v["launches"][k] for v in paths11.values())
                             for k in next(iter(paths11.values()))["launches"]},
                **{f"{k}_resume_{d}": v[d]["block"]["launches"] for k, v in elastic.items()
-                  for d in ("2to1", "1to2")}}
+                  for d in ("2to1", "1to2")},
+               **{k: v["launches"] for k, v in optimizers["driven"].items()
+                  if k.endswith("_rmsprop")}}
     kernels = [dict(name=name, route="cuda", launches=main_path["launches"][name],
                     launches_by_path={p: c.get(name, 0) for p, c in by_path.items()}, **r)
                for name, r in results.items()]
@@ -3724,7 +4089,7 @@ def main():
                            data_parallel=data_parallel, dp_cli=dp_cli,
                            offpolicy_dp=offpolicy_dp, offpolicy_resume=offpolicy_resume,
                            offpolicy_cli=offpolicy_cli, paths11=paths11,
-                           elastic_resume=elastic),
+                           elastic_resume=elastic, optimizers=optimizers),
                       f, indent=1, sort_keys=True)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@ recurrent forms, MADDPG, FACMAC, COMA) and every env family (SMAClite,
 MPE, the matrix game, SISL pursuit, LBF, and host PettingZoo envs through
 ``envs/external.py``), full-runner checkpoints (``core/checkpoint.py``),
 data-parallel training over ``torch.distributed`` for all seven families
-(``distributed/``), and a runner for the validation recipes
-(``validate.py`` over ``recipes.py``). Differences in idiom:
+(``distributed/``), a runner for the validation recipes
+(``validate.py`` over ``recipes.py``), and every optax optimizer the JAX
+package trains with (``core/optim.py``, optax's arithmetic written out in
+torch). Differences in idiom:
 
 - envs are natively batched over a leading ``num_envs`` axis (no vmap);
 - randomness comes from explicit ``torch.Generator``s, not PRNG keys;

@@ -1,6 +1,7 @@
 """Environment registry (port of ``cleanmarl_tpu/envs/registry.py``).
 
-``make(env_type, env_name, ...)`` builds one env of a family: ``matrix``,
+``make(env_type, env_name, ...)`` builds one env of a family, and
+``make_vec(env_type, env_name, num_envs, ...)`` a batch of them: ``matrix``,
 ``mpe`` (and ``pz`` with ``env_family="mpe"``), ``smaclite``, ``pursuit``
 and ``lbf`` are batched torch envs on ``device``; ``pz`` with any other
 family is a real PettingZoo env stepped on the host
@@ -54,3 +55,13 @@ def make(env_type: str, env_name: str, agent_ids: bool = False,
     if agent_ids:
         env = AgentIDWrapper(env)
     return env
+
+
+def make_vec(env_type: str, env_name: str, num_envs: int, agent_ids: bool = False,
+             auto_reset: bool = True, device="cuda", **kwargs):
+    """``num_envs`` copies of ``make``'s env stepped as one batch: a
+    ``VecEnv``, or a ``HostVecEnv`` for a host family."""
+    from cleanmarl_tpu_torch.envs.external import as_vec
+
+    env = make(env_type, env_name, agent_ids=agent_ids, device=device, **kwargs)
+    return as_vec(env, num_envs, auto_reset=auto_reset)

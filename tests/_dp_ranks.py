@@ -161,6 +161,35 @@ def run_jobs(rank, world, port, jobs):
             for (kind, name, args), full in zip(jobs, fulls)}
 
 
+def ppo_optimizer_updates(rank, world, port, kw, names):
+    """For each optimizer name: a single-process MAPPO runner, one rollout
+    and one update from it (before the group exists), then, in the group,
+    one update of this rank's share of the same runner and rollout →
+    {name: dict(single=..., params=...)}, actor and critic params."""
+    from cleanmarl_tpu_torch.algos import ppo_common
+    from cleanmarl_tpu_torch.distributed import DATA_FIELD_DIMS, shard_runner
+
+    def cfg(name):
+        return ppo_common.PPOConfig(**dict(kw, optimizer=name), device="cpu")
+    before = {}
+    for name in names:
+        init, _, _, meta = ppo_common.make_train(cfg(name), centralized=True)
+        full, traj, h0 = meta["collect_rollout"](init(torch.Generator().manual_seed(0)))
+        single, _ = meta["ppo_update"](full, traj, h0)
+        before[name] = (full, _np(traj), h0.numpy(),
+                        _np((single.actor_params, single.critic_params)))
+    join(rank, world, port)
+    out = {}
+    for name, (full, traj, h0, single) in before.items():
+        _, _, _, meta = ppo_common.make_train(cfg(name), centralized=True)
+        local = shard_runner(full, DATA_FIELD_DIMS["PPO"], rank, world)
+        traj_l = {k: _shard(v, rank, world, 1) for k, v in traj.items()}
+        upd, _ = meta["ppo_update"](local, traj_l, _shard(h0, rank, world, 0))
+        out[name] = dict(single=single, params=_np((upd.actor_params, upd.critic_params)),
+                         count=upd.actor_opt["count"], local_envs=meta["local_envs"])
+    return out
+
+
 def mappo_block(rank, world, port, kw):
     """``global_runner_init`` and one rollout (its rollout metrics and this
     rank's episode sums), then one driven ``train_block`` from the start."""

@@ -2,15 +2,16 @@
 ``tests/test_checkpoint.py`` on the CPU.
 
 - for each of the seven families (MAPPO, COMA, QMIX, VDN, recurrent Q with
-  episode and with sequence replay, MADDPG, FACMAC): save after a block,
-  restore into an init of another seed, and the next block is bit-identical
-  (every tensor, generator state and host counter of the runner, and
-  every metric);
+  episode and with sequence replay, MADDPG, FACMAC), and MAPPO with
+  ``rmsprop`` under the LR anneal: save after a block, restore into an
+  init of another seed, and the next block is bit-identical (every tensor,
+  generator state and host counter of the runner, and every metric);
 - the QMIX episode ring and accumulator survive exactly;
 - a resumed ``vdn.train`` trains only the remaining budget (512 → 1024 →
   1024 env steps), as the JAX driver's ``num_blocks`` rule does;
 - ``max_to_keep`` pruning; a half-written step is ignored; a template of
-  another shape raises naming the field (a restore at another world size,
+  another shape, or of another optimizer (``adam`` saved, ``lamb``
+  restored), raises naming the field (a restore at another world size,
   and the layouts it refuses, are in ``tests/test_torch_elastic_resume.py``);
 - ``use_wnb`` reaches ``wandb.init`` through the port's ``Logger``.
 
@@ -46,6 +47,12 @@ FAMILIES = {
                    rollout_len=10, actor_hidden_dim=8, critic_hidden_dim=8, epochs=2,
                    num_minibatches=2, log_interval=1, normalize_values=True, seed=0,
                    verbose=False)),
+    "mappo_rmsprop": (lambda c: ppo_common.make_train(c, centralized=True),
+                      ppo_common.PPOConfig,
+                      dict(env_type="smaclite", env_name="3m", recurrent=True, num_envs=4,
+                           rollout_len=10, actor_hidden_dim=8, critic_hidden_dim=8,
+                           epochs=2, num_minibatches=2, log_interval=1, optimizer="rmsprop",
+                           anneal_lr=True, total_timesteps=400, seed=0, verbose=False)),
     "coma": (coma.make_train, coma.COMAConfig,
              dict(env_type="matrix", num_envs=4, log_interval=2, actor_hidden_dim=8,
                   critic_hidden_dim=8, recurrent=True, seed=0, verbose=False)),
@@ -66,7 +73,7 @@ FAMILIES = {
                dict(_SL, hyper_dim=8, embed_dim=4)),
 }
 # each family's table of per-env fields (dp.DATA_FIELD_DIMS)
-TABLES = {"mappo": "PPO", "coma": "COMA", "qmix": "QMIX", "vdn": "VDN",
+TABLES = {"mappo": "PPO", "mappo_rmsprop": "PPO", "coma": "COMA", "qmix": "QMIX", "vdn": "VDN",
           "recurrent_q_episode": "RECURRENT_Q", "recurrent_q_sequence": "RECURRENT_Q",
           "maddpg": "MADDPG", "facmac": "FACMAC"}
 
@@ -202,6 +209,20 @@ def test_template_of_another_shape_raises_naming_the_field(tmp_path):
     with pytest.raises(ValueError, match=r"runner\.env_state\.t: shape \(4,\) in the file, "
                        r"\(8,\) in the runner"):
         ckpt.restore(init8(torch.Generator().manual_seed(0)))
+
+
+def test_another_optimizer_raises_naming_the_field(tmp_path):
+    """An ``adam`` runner's checkpoint restored into a ``lamb`` runner: the
+    two states are both Adam moments, but the layouts differ by name."""
+    make_train, config, kw = FAMILIES["mappo"]
+    init, _, _, _ = make_train(config(**kw, device="cpu"))
+    runner = init(torch.Generator().manual_seed(0))
+    ckpt = _checkpointer(tmp_path, "mappo")
+    ckpt.save(10, runner)
+    init_lamb, _, _, _ = make_train(config(**dict(kw, optimizer="lamb"), device="cpu"))
+    with pytest.raises(ValueError, match=r"runner\.actor_opt: keys \['count', 'mu', 'nu'\] "
+                       r"in the file, \['count', 'lamb'\] in the runner"):
+        ckpt.restore(init_lamb(torch.Generator().manual_seed(0)))
 
 
 def test_use_wnb_reaches_wandb_init(monkeypatch, tmp_path):

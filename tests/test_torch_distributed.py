@@ -200,6 +200,32 @@ def test_two_rank_recurrent_coma_update_matches_jax(update_results):
     same_trees(ranks[1]["critic_params"], ranks[0]["critic_params"])
 
 
+# one 2-rank MAPPO update with optimizers whose state or step is not
+# Adam's: lamb's per-leaf trust ratio, noisy_sgd's noise (drawn from the
+# count, so every rank draws the same)
+OPT_NAMES = ("lamb", "noisy_sgd")
+OPT_KW = dict(PPO_BASE, recurrent=True, num_envs=8, normalize_advantage=True,
+              clip_gradients=0.5, anneal_lr=True)
+
+
+@pytest.fixture(scope="module")
+def optimizer_results():
+    return _dp_ranks.run_ranks(_dp_ranks.ppo_optimizer_updates, WORLD, OPT_KW, OPT_NAMES)
+
+
+@pytest.mark.parametrize("name", OPT_NAMES)
+def test_two_rank_update_with_another_optimizer_matches_one_process(name, optimizer_results):
+    """Params bitwise identical across the ranks, and equal to the
+    single-process update from the same runner and rollout within 1e-5
+    (the gradient summed over the ranks in another order)."""
+    ranks = [r[name] for r in optimizer_results]
+    assert [r["local_envs"] for r in ranks] == [OPT_KW["num_envs"] // WORLD] * WORLD
+    for r in ranks[1:]:
+        same_trees(r["params"], ranks[0]["params"])
+    close_trees(ranks[0]["params"], ranks[0]["single"], name)
+    assert ranks[0]["count"] == OPT_KW["epochs"] * OPT_KW["num_minibatches"]
+
+
 BLOCK = dict(env_type="smaclite", env_name="3m", recurrent=True, num_envs=8,
              rollout_len=30, actor_hidden_dim=8, critic_hidden_dim=8, epochs=1,
              num_minibatches=2, log_interval=1, normalize_advantage=True,

@@ -7,6 +7,7 @@ the JAX package's envs.
   deterministic);
 - one batched ``VecEnv.step`` equals the JAX ``env.step`` run per env on
   the same states, with auto-reset and the pre-reset ``final``;
+- the first step of a ``make_vec`` batch equals the JAX ``make_vec``'s;
 - the matrix game, ``AgentIDWrapper`` and the registry.
 """
 import glob
@@ -124,6 +125,29 @@ def test_batched_vecenv_step_matches_jax_per_env(name):
     assert (new_state.t.numpy() == np.where(ended, 0, final_t(states) + 1)).all()
 
 
+def test_make_vec_first_step_matches_jax():
+    """``registry.make_vec`` against the JAX ``make_vec`` on 3m: the same
+    widths, and from the JAX reset state one batched step equals the JAX
+    batch's (no env ends on a first step)."""
+    N = 4
+    jvec = jreg.make_vec("smaclite", "3m", N, agent_ids=True)
+    tvec = treg.make_vec("smaclite", "3m", N, agent_ids=True, device="cpu")
+    assert isinstance(tvec, VecEnv) and tvec.auto_reset and tvec.device == torch.device("cpu")
+    widths = ("num_envs", "n_agents", "obs_dim", "state_dim", "n_actions", "episode_limit")
+    assert [getattr(tvec, k) for k in widths] == [getattr(jvec, k) for k in widths]
+    js, jts = jax.jit(jvec.reset)(jax.random.PRNGKey(0))
+    actions = _random_actions(np.random.RandomState(0), np.asarray(jts.avail))
+    _, jout, _ = jax.jit(jvec.step)(js, actions, jax.random.PRNGKey(1))
+    tstate = state_from_numpy(SmacState, _np_state(js), "cpu")
+    _, out, _ = tvec.step(tstate, torch.as_tensor(actions), torch.Generator().manual_seed(1))
+    for k in ("obs", "state", "reward"):
+        np.testing.assert_allclose(getattr(out, k).numpy(), np.asarray(getattr(jout, k)),
+                                   atol=ATOL, err_msg=k)
+    for k in ("avail", "done", "truncated"):
+        np.testing.assert_array_equal(getattr(out, k).numpy(), np.asarray(getattr(jout, k)),
+                                      err_msg=k)
+
+
 def final_t(states):
     return np.array([int(s.t) for s, _ in states])
 
@@ -204,8 +228,8 @@ def test_registry_and_unported_options_raise():
             treg.make(env_type, name, device="cpu")
 
 
-@pytest.mark.parametrize("factory", ["registry", "smaclite", "mpe", "matrix", "lbf",
-                                     "pursuit"])
+@pytest.mark.parametrize("factory", ["registry", "make_vec", "smaclite", "mpe", "matrix",
+                                     "lbf", "pursuit"])
 def test_env_factories_default_to_the_card(factory):
     """Without a device argument every env factory and family constructor
     asks for the card, which raises on a machine without CUDA."""
@@ -215,6 +239,7 @@ def test_env_factories_default_to_the_card(factory):
     from cleanmarl_tpu_torch.envs.matrix_game import MatrixGame
 
     build = {"registry": lambda: treg.make("smaclite", "3m"),
+             "make_vec": lambda: treg.make_vec("smaclite", "3m", 4),
              "smaclite": lambda: smaclite.MicroCombat(3, 3),
              "mpe": lambda: mpe.make("simple_spread_v3"),
              "matrix": lambda: MatrixGame(),

@@ -41,6 +41,8 @@ CASES = {
     "remat_bf16": dict(remat_actor=True, compute_dtype="bfloat16",
                        normalize_return=True),
     "feedforward": dict(recurrent=False, normalize_advantage=True),
+    "rmsprop_anneal_clip": dict(optimizer="rmsprop", anneal_lr=True, clip_gradients=0.5,
+                                normalize_advantage=True),
 }
 
 
@@ -68,6 +70,7 @@ def _trajectory(env, rng, dead_frac):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_ppo_update_matches_jax(case):
     kw = dict(BASE, **CASES[case])
+    name = kw.get("optimizer", "adam")
     jinit, _, _, jmeta = jmappo.make_train(JaxPPOConfig(**kw))
     pt = jmeta["phase_timer"]
     free = dict(zip(pt.__code__.co_freevars, (c.cell_contents for c in pt.__closure__)))
@@ -91,8 +94,8 @@ def test_ppo_update_matches_jax(case):
     runner_t = runner_t.replace(
         actor_params=from_numpy_tree(np_tree(runner_j.actor_params), "cpu"),
         critic_params=from_numpy_tree(np_tree(runner_j.critic_params), "cpu"),
-        actor_opt=opt_state_from_numpy(np_tree(runner_j.actor_opt), "cpu"),
-        critic_opt=opt_state_from_numpy(np_tree(runner_j.critic_opt), "cpu"),
+        actor_opt=opt_state_from_numpy(np_tree(runner_j.actor_opt), "cpu", name),
+        critic_opt=opt_state_from_numpy(np_tree(runner_j.critic_opt), "cpu", name),
         obs=torch.as_tensor(boot_obs), state=torch.as_tensor(boot_state),
         vnorm=from_numpy_tree(np_tree(runner_j.vnorm), "cpu"),
     )
@@ -110,4 +113,5 @@ def test_ppo_update_matches_jax(case):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL, err_msg=which)
     assert out_t.num_updates == int(out_j.num_updates)
-    assert out_t.actor_opt["count"] == int(jax.tree.leaves(out_j.actor_opt)[0])
+    assert out_t.actor_opt["count"] == opt_state_from_numpy(
+        np_tree(out_j.actor_opt), "cpu", name)["count"]

@@ -204,6 +204,7 @@ UPDATE_CASES = {
     "plain_max_memefficient_clip": dict(double_q=False, memefficient=True,
                                         clip_gradients=0.5),
     "double_q_memefficient_normalize": dict(memefficient=True, normalize_reward=True),
+    "double_q_adamw": dict(optimizer="adamw"),
 }
 
 
@@ -290,7 +291,7 @@ def test_update_matches_jax(case):
         noise = jax.random.split(k[2], len(leaves))
         target = jax.tree.unflatten(tdef, [p + 0.05 * jax.random.normal(nk, p.shape)
                                            for p, nk in zip(leaves, noise)])
-        opt = jmake_optimizer("adam", jcfg.learning_rate, jcfg.clip_gradients)
+        opt = jmake_optimizer(jcfg.optimizer, jcfg.learning_rate, jcfg.clip_gradients)
         return params, target, opt.init(params)
 
     params, target, opt_state = start(jax.random.PRNGKey(len(case)))
@@ -306,7 +307,7 @@ def test_update_matches_jax(case):
     _, _, _, meta = tqmix.make_train(tqmix.QMIXConfig(**kw, device="cpu"), env)
     got_p, got_o, loss, gnorm = meta["update"](
         from_numpy_tree(np_tree(params), "cpu"), from_numpy_tree(np_tree(target), "cpu"),
-        opt_state_from_numpy(np_tree(opt_state), "cpu"), to_torch_batch(b1),
+        opt_state_from_numpy(np_tree(opt_state), "cpu", jcfg.optimizer), to_torch_batch(b1),
         torch.as_tensor(m1))
     np.testing.assert_allclose(float(loss), float(want_loss), **TOL)
     np.testing.assert_allclose(float(gnorm), float(want_gnorm), **TOL)

@@ -100,6 +100,7 @@ EPISODE_CASES = {
     "qmix_normalize": dict(mixing="qmix", normalize_reward=True),
     "qmix_tbptt3_scan": dict(mixing="qmix", tbptt=3, gru_impl="xla"),
     "qmix_kernel_route": dict(mixing="qmix", gru_impl="kernel"),
+    "qmix_rmsprop": dict(mixing="qmix", optimizer="rmsprop"),
 }
 SEQUENCE_CASES = {
     "burn_in_3_normalize": dict(burn_in=3, normalize_reward=True),
@@ -187,7 +188,7 @@ def to_torch_batch(batch):
 
 
 def start(jcfg, env, seed):
-    """JAX params, a perturbed target and a fresh Adam state."""
+    """JAX params, a perturbed target and a fresh optimizer state."""
     k = jax.random.split(jax.random.PRNGKey(seed), 3)
     params = {"q": jnets.rnn_init(k[0], env.obs_dim, H, env.n_actions)}
     if jcfg.mixing == "qmix":
@@ -196,12 +197,12 @@ def start(jcfg, env, seed):
     noise = jax.random.split(k[2], len(leaves))
     target = jax.tree.unflatten(tdef, [p + 0.05 * jax.random.normal(nk, p.shape)
                                        for p, nk in zip(leaves, noise)])
-    opt = jmake_optimizer("adam", jcfg.learning_rate, jcfg.clip_gradients)
+    opt = jmake_optimizer(jcfg.optimizer, jcfg.learning_rate, jcfg.clip_gradients)
     return params, target, opt.init(params)
 
 
 def run_update_pair(kw, seq, seed):
-    """Two JAX updates (the first fills the Adam state) and the port's
+    """Two JAX updates (the first fills the optimizer state) and the port's
     second update from the JAX state after the first → (port, JAX)."""
     env = treg.make("smaclite", "3m", agent_ids=True, device="cpu")
     base = dict(env_type="smaclite", env_name="3m", hidden_dim=H, hyper_dim=H,
@@ -227,7 +228,8 @@ def run_update_pair(kw, seq, seed):
     cfg = recurrent_q.RecurrentQConfig(**base, replay=jcfg.replay, device="cpu")
     _, _, _, meta = recurrent_q.make_train(cfg, env)
     state = (from_numpy_tree(np_tree(params), "cpu"), from_numpy_tree(np_tree(target), "cpu"),
-             opt_state_from_numpy(np_tree(opt_state), "cpu"), to_torch_batch(batches[1]))
+             opt_state_from_numpy(np_tree(opt_state), "cpu", jcfg.optimizer, count=1),
+             to_torch_batch(batches[1]))
     got = (meta["update_seq"](*state) if seq
            else meta["update"](*state, torch.as_tensor(masks[1])))
     return got, want
