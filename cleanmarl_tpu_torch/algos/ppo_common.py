@@ -48,6 +48,7 @@ from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
+from cleanmarl_tpu_torch.core.tracing import span
 from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.base import categorical
@@ -275,6 +276,10 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
     # ------------------------------------------------------------------
     @torch.no_grad()
     def collect_rollout(runner: PPORunnerState):
+        with span("ppo.rollout"):
+            return _collect_rollout(runner)
+
+    def _collect_rollout(runner: PPORunnerState):
         gen = runner.generator
         traj = {
             "obs": torch.empty((rollout_len,) + tuple(runner.obs.shape), device=device),
@@ -293,20 +298,21 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
         h0 = h = runner.actor_h
         stats = runner.stats
         for t in range(rollout_len):
-            h2, logits = actor_step(runner.actor_params, h, obs, avail)
-            actions = categorical(logits, gen)
-            logp = torch.gather(torch.log_softmax(logits, dim=-1), -1,
-                                actions[..., None])[..., 0]
-            env_state, ts2, _ = vec.step(env_state, actions, gen)
-            ended = torch.logical_or(ts2.done, ts2.truncated)
-            h = torch.where(ended[:, None, None], 0.0, h2)
-            stats = stats.step(ts2.reward, ended,
-                               ts2.info.get("battle_won", torch.zeros_like(ts2.reward)))
-            for k, v in (("obs", obs), ("state", state), ("avail", avail),
-                         ("action", actions), ("logp", logp),
-                         ("reward", ts2.reward), ("ended", ended)):
-                traj[k][t] = v
-            obs, state, avail = ts2.obs, ts2.state, ts2.avail
+            with span("ppo.rollout_step"):
+                h2, logits = actor_step(runner.actor_params, h, obs, avail)
+                actions = categorical(logits, gen)
+                logp = torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                    actions[..., None])[..., 0]
+                env_state, ts2, _ = vec.step(env_state, actions, gen)
+                ended = torch.logical_or(ts2.done, ts2.truncated)
+                h = torch.where(ended[:, None, None], 0.0, h2)
+                stats = stats.step(ts2.reward, ended,
+                                   ts2.info.get("battle_won", torch.zeros_like(ts2.reward)))
+                for k, v in (("obs", obs), ("state", state), ("avail", avail),
+                             ("action", actions), ("logp", logp),
+                             ("reward", ts2.reward), ("ended", ended)):
+                    traj[k][t] = v
+                obs, state, avail = ts2.obs, ts2.state, ts2.avail
         runner = runner.replace(env_state=env_state, obs=obs, state=state,
                                 avail=avail, actor_h=h, stats=stats,
                                 step=runner.step + rollout_len * cfg.num_envs)
@@ -314,7 +320,11 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
 
     # ------------------------------------------------------------------
     def ppo_update(runner: PPORunnerState, traj, h0):
-        with torch.no_grad():
+        with span("ppo.update"):
+            return _ppo_update(runner, traj, h0)
+
+    def _ppo_update(runner: PPORunnerState, traj, h0):
+        with torch.no_grad(), span("ppo.returns"):
             alive = alive_mask(traj["avail"]) if cfg.death_masking else None
             values = critic_values(runner.critic_params, traj["obs"], traj["state"])
             vboot = critic_values(runner.critic_params, runner.obs, runner.state)
@@ -393,27 +403,31 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             counts = dp.global_sum(*(alive[:, sl].sum() for sl in slices))
         epoch_ms = []
         for _ in range(cfg.epochs):
-            mb_ms = []
-            for i, sl in enumerate(slices):
-                mb = {k: v[:, sl] for k, v in full.items()}
-                mb["h0"] = h0[sl]
-                if cfg.death_masking:
-                    mb["count"] = torch.clamp(counts[i], min=1.0)
-                a_loss, (entropy, kl, clipped), a_grads = value_and_grad(
-                    actor_loss_fn, a_params, mb)
-                c_loss, _, c_grads = value_and_grad(critic_loss_fn, c_params, mb)
-                # the gradients and the loss metrics of every rank, summed
-                a_grads, c_grads, (a_loss, c_loss, entropy, kl, clipped) = (
-                    dp.all_reduce_sum([a_grads, c_grads,
-                                       [a_loss, c_loss, entropy, kl, clipped]]))
-                with torch.no_grad():
-                    a_gnorm = nets.global_norm(a_grads)
-                    c_gnorm = nets.global_norm(c_grads)
-                    a_params, a_opt = actor_opt.update(a_grads, a_opt, a_params)
-                    c_params, c_opt = critic_opt.update(c_grads, c_opt, c_params)
-                mb_ms.append(torch.stack([a_loss, c_loss, entropy, kl, clipped,
-                                          a_gnorm, c_gnorm]))
-            epoch_ms.append(torch.stack(mb_ms).mean(0))
+            with span("ppo.epoch"):
+                mb_ms = []
+                for i, sl in enumerate(slices):
+                    with span("ppo.minibatch"):
+                        mb = {k: v[:, sl] for k, v in full.items()}
+                        mb["h0"] = h0[sl]
+                        if cfg.death_masking:
+                            mb["count"] = torch.clamp(counts[i], min=1.0)
+                        with span("ppo.actor_grad"):
+                            a_loss, (entropy, kl, clipped), a_grads = value_and_grad(
+                                actor_loss_fn, a_params, mb)
+                        with span("ppo.critic_grad"):
+                            c_loss, _, c_grads = value_and_grad(critic_loss_fn, c_params, mb)
+                        # the gradients and the loss metrics of every rank, summed
+                        a_grads, c_grads, (a_loss, c_loss, entropy, kl, clipped) = (
+                            dp.all_reduce_sum([a_grads, c_grads,
+                                               [a_loss, c_loss, entropy, kl, clipped]]))
+                        with torch.no_grad():
+                            a_gnorm = nets.global_norm(a_grads)
+                            c_gnorm = nets.global_norm(c_grads)
+                            a_params, a_opt = actor_opt.update(a_grads, a_opt, a_params)
+                            c_params, c_opt = critic_opt.update(c_grads, c_opt, c_params)
+                        mb_ms.append(torch.stack([a_loss, c_loss, entropy, kl, clipped,
+                                                  a_gnorm, c_gnorm]))
+                epoch_ms.append(torch.stack(mb_ms).mean(0))
         m = torch.stack(epoch_ms).mean(0)
         keys = ("train/actor_loss", "train/critic_loss", "train/entropy",
                 "train/kl_divergence", "train/clipped_ratios",

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+from cleanmarl_tpu_torch.core.tracing import span
 from cleanmarl_tpu_torch.distributed import dp
 
 
@@ -86,20 +87,21 @@ class EpisodeBuffer:
         stored episodes. ``idx < size <= capacity``, so the scratch row is
         never read. In a process group, this rank's rows ``rank, rank +
         world, ...`` of rank 0's draw."""
-        world = dp.rank_world()[1]
-        if world == 1:
-            idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
-                                device=self.length.device)
-            batch = tree_map(lambda buf: buf[idx], self.data)
-            length = self.length[idx]
-        else:
-            idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
-            rows = dp.move_rows({"data": self.data, "length": self.length}, idx % world,
-                                idx // world, np.arange(batch_size) % world)
-            batch, length = rows["data"], rows["length"]
-        steps = torch.arange(self.t_max, device=length.device)
-        mask = (steps[None, :] < length[:, None]).float()
-        return batch, mask
+        with span("ring.sample"):
+            world = dp.rank_world()[1]
+            if world == 1:
+                idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
+                                    device=self.length.device)
+                batch = tree_map(lambda buf: buf[idx], self.data)
+                length = self.length[idx]
+            else:
+                idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
+                rows = dp.move_rows({"data": self.data, "length": self.length}, idx % world,
+                                    idx // world, np.arange(batch_size) % world)
+                batch, length = rows["data"], rows["length"]
+            steps = torch.arange(self.t_max, device=length.device)
+            mask = (steps[None, :] < length[:, None]).float()
+            return batch, mask
 
 
 class EpisodeAccumulator:
@@ -137,49 +139,50 @@ class EpisodeAccumulator:
         ``record`` has a leading num_envs axis. Returns the number of
         episodes committed, over every rank (read from the device: one
         sync)."""
-        num_envs, t_max = self.t.shape[0], tree_leaves(self.store)[0].shape[1]
-        envs = torch.arange(num_envs, device=self.t.device)
-        tw = torch.clamp(self.t, max=t_max - 1)
+        with span("ring.commit"):
+            num_envs, t_max = self.t.shape[0], tree_leaves(self.store)[0].shape[1]
+            envs = torch.arange(num_envs, device=self.t.device)
+            tw = torch.clamp(self.t, max=t_max - 1)
 
-        def write_step(buf, x):
-            buf[envs, tw] = x
-        tree_map(write_step, self.store, record)
-        new_t = torch.clamp(self.t + 1, max=t_max)
+            def write_step(buf, x):
+                buf[envs, tw] = x
+            tree_map(write_step, self.store, record)
+            new_t = torch.clamp(self.t + 1, max=t_max)
 
-        cap = ring.capacity
-        rank, world = dp.rank_world()
-        if world == 1:
-            ended_i = ended.long()
-            offsets = torch.cumsum(ended_i, 0) - ended_i
-            dest = torch.where(ended, torch.remainder(ring.cursor + offsets, cap), cap)
+            cap = ring.capacity
+            rank, world = dp.rank_world()
+            if world == 1:
+                ended_i = ended.long()
+                offsets = torch.cumsum(ended_i, 0) - ended_i
+                dest = torch.where(ended, torch.remainder(ring.cursor + offsets, cap), cap)
 
-            # Every env whose episode did not end writes the scratch row, so
-            # ``dest`` repeats ``cap``; on CUDA an indexed assignment with
-            # repeated indices keeps one of the writes, unspecified which.
-            # That is harmless because nothing reads the scratch row
-            # (``sample`` draws below ``size``); the rows of ended envs are
-            # distinct.
-            def commit(buf, s):
-                buf[dest] = s
-            tree_map(commit, ring.data, self.store)
-            ring.length[dest] = new_t
-            n_new = int(ended_i.sum())
-        else:
-            ends = np.flatnonzero(dp.gather_flags(ended)[0])      # global envs, in order
-            n_new = len(ends)
-            if n_new:
-                dest = (ring.cursor + np.arange(n_new)) % cap      # global rows
-                got = dp.move_rows({"data": self.store, "length": new_t}, ends % world,
-                                   ends // world, dest % world)
-                rows = torch.as_tensor(dest[dest % world == rank] // world,
-                                       device=self.t.device)
-
+                # Every env whose episode did not end writes the scratch row, so
+                # ``dest`` repeats ``cap``; on CUDA an indexed assignment with
+                # repeated indices keeps one of the writes, unspecified which.
+                # That is harmless because nothing reads the scratch row
+                # (``sample`` draws below ``size``); the rows of ended envs are
+                # distinct.
                 def commit(buf, s):
-                    buf[rows] = s
-                tree_map(commit, ring.data, got["data"])
-                ring.length[rows] = got["length"]
-        self.t = torch.where(ended, 0, new_t)
+                    buf[dest] = s
+                tree_map(commit, ring.data, self.store)
+                ring.length[dest] = new_t
+                n_new = int(ended_i.sum())
+            else:
+                ends = np.flatnonzero(dp.gather_flags(ended)[0])      # global envs, in order
+                n_new = len(ends)
+                if n_new:
+                    dest = (ring.cursor + np.arange(n_new)) % cap      # global rows
+                    got = dp.move_rows({"data": self.store, "length": new_t}, ends % world,
+                                       ends // world, dest % world)
+                    rows = torch.as_tensor(dest[dest % world == rank] // world,
+                                           device=self.t.device)
 
-        ring.cursor = (ring.cursor + n_new) % cap
-        ring.size = min(ring.size + n_new, cap)
-        return n_new
+                    def commit(buf, s):
+                        buf[rows] = s
+                    tree_map(commit, ring.data, got["data"])
+                    ring.length[rows] = got["length"]
+            self.t = torch.where(ended, 0, new_t)
+
+            ring.cursor = (ring.cursor + n_new) % cap
+            ring.size = min(ring.size + n_new, cap)
+            return n_new

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+from cleanmarl_tpu_torch.core.tracing import span
 from cleanmarl_tpu_torch.distributed import dp
 
 
@@ -83,15 +84,16 @@ class SequenceBuffer:
         ``idx < size <= capacity``, so the scratch row is never read. In a
         process group, this rank's rows ``rank, rank + world, ...`` of rank
         0's draw."""
-        world = dp.rank_world()[1]
-        if world > 1:
-            idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
-            return dp.move_rows(self.data, idx % world, idx // world,
-                                np.arange(batch_size) % world)
-        dev = tree_leaves(self.data)[0].device
-        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
-                            device=dev)
-        return tree_map(lambda buf: buf[idx], self.data)
+        with span("ring.sample"):
+            world = dp.rank_world()[1]
+            if world > 1:
+                idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
+                return dp.move_rows(self.data, idx % world, idx // world,
+                                    np.arange(batch_size) % world)
+            dev = tree_leaves(self.data)[0].device
+            idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
+                                device=dev)
+            return tree_map(lambda buf: buf[idx], self.data)
 
 
 class SequenceAccumulator:
@@ -138,69 +140,70 @@ class SequenceAccumulator:
         whose ``ended`` (num_envs,) flag is set, all in place. ``record``
         has a leading num_envs axis. Returns (chunks committed, episodes
         ended), read from the device together: one sync."""
-        num_envs, L = self.t.shape[0], tree_leaves(self.store)[0].shape[1]
-        dev = self.t.device
-        envs = torch.arange(num_envs, device=dev)
+        with span("ring.commit"):
+            num_envs, L = self.t.shape[0], tree_leaves(self.store)[0].shape[1]
+            dev = self.t.device
+            envs = torch.arange(num_envs, device=dev)
 
-        def write_step(buf, x):
-            buf[envs, self.t] = x
-        tree_map(write_step, self.store, record)
-        t_new = self.t + 1                     # ≥ 1: this step was written
-        full = t_new == L
-        commit = torch.logical_or(full, ended)
-        patch = torch.logical_and(ended, ~full)
+            def write_step(buf, x):
+                buf[envs, self.t] = x
+            tree_map(write_step, self.store, record)
+            t_new = self.t + 1                     # ≥ 1: this step was written
+            full = t_new == L
+            commit = torch.logical_or(full, ended)
+            patch = torch.logical_and(ended, ~full)
 
-        # the back-fill of every env at once, as one gather per leaf: the
-        # first L − t_new entries come from the tail of the env's previous
-        # chunk, the rest are this partial chunk shifted right
-        steps = torch.arange(L, device=dev)[None, :]
-        toadd = (L - t_new)[:, None]
-        prev_idx = torch.clamp(t_new[:, None] + steps, max=L - 1)
-        cur_idx = torch.clamp(steps - toadd, min=0)
-        from_prev = steps < toadd
-        rows = envs[:, None]
+            # the back-fill of every env at once, as one gather per leaf: the
+            # first L − t_new entries come from the tail of the env's previous
+            # chunk, the rest are this partial chunk shifted right
+            steps = torch.arange(L, device=dev)[None, :]
+            toadd = (L - t_new)[:, None]
+            prev_idx = torch.clamp(t_new[:, None] + steps, max=L - 1)
+            cur_idx = torch.clamp(steps - toadd, min=0)
+            from_prev = steps < toadd
+            rows = envs[:, None]
 
-        def bcast(m, x):
-            return m.reshape(m.shape + (1,) * (x.dim() - m.dim()))
+            def bcast(m, x):
+                return m.reshape(m.shape + (1,) * (x.dim() - m.dim()))
 
-        def chunk_of(pv, st):
-            patched = torch.where(bcast(from_prev, st), pv[rows, prev_idx], st[rows, cur_idx])
-            return torch.where(bcast(patch, st), patched, st)
-        chunk = tree_map(chunk_of, self.prev, self.store)
+            def chunk_of(pv, st):
+                patched = torch.where(bcast(from_prev, st), pv[rows, prev_idx], st[rows, cur_idx])
+                return torch.where(bcast(patch, st), patched, st)
+            chunk = tree_map(chunk_of, self.prev, self.store)
 
-        cap = ring.capacity
-        rank, world = dp.rank_world()
-        if world == 1:
-            commit_i = commit.long()
-            offsets = torch.cumsum(commit_i, 0) - commit_i
-            dest = torch.where(commit, torch.remainder(ring.cursor + offsets, cap), cap)
+            cap = ring.capacity
+            rank, world = dp.rank_world()
+            if world == 1:
+                commit_i = commit.long()
+                offsets = torch.cumsum(commit_i, 0) - commit_i
+                dest = torch.where(commit, torch.remainder(ring.cursor + offsets, cap), cap)
 
-            # Every env that commits nothing writes the scratch row, so
-            # ``dest`` repeats ``cap``; on CUDA an indexed assignment with
-            # repeated indices keeps one of the writes, unspecified which.
-            # That is harmless because nothing reads the scratch row
-            # (``sample`` draws below ``size``); the rows of committing envs
-            # are distinct.
-            def scatter(buf, c):
-                buf[dest] = c
-            tree_map(scatter, ring.data, chunk)
-            n_new, n_ended = torch.stack((commit_i.sum(), ended.long().sum())).tolist()
-        else:
-            flags = dp.gather_flags(commit, ended)                 # global envs, in order
-            commits = np.flatnonzero(flags[0])
-            n_new, n_ended = len(commits), int(flags[1].sum())
-            if n_new:
-                dest = (ring.cursor + np.arange(n_new)) % cap      # global rows
-                got = dp.move_rows(chunk, commits % world, commits // world, dest % world)
-                rows = torch.as_tensor(dest[dest % world == rank] // world, device=dev)
-
+                # Every env that commits nothing writes the scratch row, so
+                # ``dest`` repeats ``cap``; on CUDA an indexed assignment with
+                # repeated indices keeps one of the writes, unspecified which.
+                # That is harmless because nothing reads the scratch row
+                # (``sample`` draws below ``size``); the rows of committing envs
+                # are distinct.
                 def scatter(buf, c):
-                    buf[rows] = c
-                tree_map(scatter, ring.data, got)
-        self.prev = tree_map(lambda pv, c: torch.where(bcast(commit, c), c, pv),
-                             self.prev, chunk)
-        self.t = torch.where(commit, 0, t_new)
+                    buf[dest] = c
+                tree_map(scatter, ring.data, chunk)
+                n_new, n_ended = torch.stack((commit_i.sum(), ended.long().sum())).tolist()
+            else:
+                flags = dp.gather_flags(commit, ended)                 # global envs, in order
+                commits = np.flatnonzero(flags[0])
+                n_new, n_ended = len(commits), int(flags[1].sum())
+                if n_new:
+                    dest = (ring.cursor + np.arange(n_new)) % cap      # global rows
+                    got = dp.move_rows(chunk, commits % world, commits // world, dest % world)
+                    rows = torch.as_tensor(dest[dest % world == rank] // world, device=dev)
 
-        ring.cursor = (ring.cursor + n_new) % cap
-        ring.size = min(ring.size + n_new, cap)
-        return n_new, n_ended
+                    def scatter(buf, c):
+                        buf[rows] = c
+                    tree_map(scatter, ring.data, got)
+            self.prev = tree_map(lambda pv, c: torch.where(bcast(commit, c), c, pv),
+                                 self.prev, chunk)
+            self.t = torch.where(commit, 0, t_new)
+
+            ring.cursor = (ring.cursor + n_new) % cap
+            ring.size = min(ring.size + n_new, cap)
+            return n_new, n_ended

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+from cleanmarl_tpu_torch.core.tracing import span
 from cleanmarl_tpu_torch.distributed import dp
 
 
@@ -64,40 +65,42 @@ class TransitionBuffer:
     def add_batch(self, batch: Any) -> None:
         """Write a batch (leading axis B, this rank's envs) at the cursor, in
         place."""
-        b = tree_leaves(batch)[0].shape[0]
-        cap = self.capacity
-        dev = tree_leaves(self.data)[0].device
-        rank, world = dp.rank_world()
-        if world == 1:
-            idx = torch.remainder(self.cursor + torch.arange(b, device=dev), cap)
-        elif cap % world == 0 and self.cursor % world == 0:
-            # global env i * world + rank lands on row cursor + i * world +
-            # rank (mod cap): this rank's own row (cursor // world + i) mod
-            # (cap // world), with no collective
-            idx = torch.remainder(self.cursor // world + torch.arange(b, device=dev),
-                                  cap // world)
-        else:
-            j = np.arange(b * world)                               # global envs
-            rows = (self.cursor + j) % cap
-            batch = dp.move_rows(batch, j % world, j // world, rows % world)
-            idx = torch.as_tensor(rows[rows % world == rank] // world, device=dev)
+        with span("ring.commit"):
+            b = tree_leaves(batch)[0].shape[0]
+            cap = self.capacity
+            dev = tree_leaves(self.data)[0].device
+            rank, world = dp.rank_world()
+            if world == 1:
+                idx = torch.remainder(self.cursor + torch.arange(b, device=dev), cap)
+            elif cap % world == 0 and self.cursor % world == 0:
+                # global env i * world + rank lands on row cursor + i * world +
+                # rank (mod cap): this rank's own row (cursor // world + i) mod
+                # (cap // world), with no collective
+                idx = torch.remainder(self.cursor // world + torch.arange(b, device=dev),
+                                      cap // world)
+            else:
+                j = np.arange(b * world)                               # global envs
+                rows = (self.cursor + j) % cap
+                batch = dp.move_rows(batch, j % world, j // world, rows % world)
+                idx = torch.as_tensor(rows[rows % world == rank] // world, device=dev)
 
-        def write(buf, x):
-            buf[idx] = x
-        tree_map(write, self.data, batch)
-        self.cursor = (self.cursor + b * world) % cap
-        self.size = min(self.size + b * world, cap)
+            def write(buf, x):
+                buf[idx] = x
+            tree_map(write, self.data, batch)
+            self.cursor = (self.cursor + b * world) % cap
+            self.size = min(self.size + b * world, cap)
 
     def sample(self, generator, batch_size: int) -> Any:
         """Uniform sample with replacement over the valid rows. In a process
         group, this rank's rows ``rank, rank + world, ...`` of rank 0's
         draw."""
-        world = dp.rank_world()[1]
-        if world > 1:
-            idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
-            return dp.move_rows(self.data, idx % world, idx // world,
-                                np.arange(batch_size) % world)
-        dev = tree_leaves(self.data)[0].device
-        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
-                            device=dev)
-        return tree_map(lambda buf: buf[idx], self.data)
+        with span("ring.sample"):
+            world = dp.rank_world()[1]
+            if world > 1:
+                idx = dp.rank0_randint(generator, max(self.size, 1), batch_size)
+                return dp.move_rows(self.data, idx % world, idx // world,
+                                    np.arange(batch_size) % world)
+            dev = tree_leaves(self.data)[0].device
+            idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
+                                device=dev)
+            return tree_map(lambda buf: buf[idx], self.data)

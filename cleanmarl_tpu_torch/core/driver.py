@@ -17,6 +17,7 @@ import torch
 
 from cleanmarl_tpu_torch.core.device import resolve_device
 from cleanmarl_tpu_torch.core.logger import Logger
+from cleanmarl_tpu_torch.core.tracing import recording, span
 from cleanmarl_tpu_torch.distributed import dp
 
 
@@ -37,19 +38,26 @@ def to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(keys, vals.cpu().tolist()))
 
 
+def _block(train_block, runner):
+    """One block and its one host read → (runner, host metrics)."""
+    with span("driver.block"):
+        runner, metrics = train_block(runner)
+    with span("driver.to_host"):
+        return runner, to_host(metrics)
+
+
 def _profiled_block(train_block, runner, profile_dir: str, device: torch.device):
-    """One block under ``torch.profiler``, its trace written for
-    TensorBoard's profile plugin (``tensorboard_trace_handler``)."""
+    """One block under ``torch.profiler`` with the program's spans on
+    (``core/tracing.py``), its trace written for TensorBoard's profile
+    plugin (``tensorboard_trace_handler``)."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(
-            profile_dir)):
-        runner, metrics = train_block(runner)
-        metrics = to_host(metrics)
-    return runner, metrics
+    with recording(), profile(activities=activities,
+                              on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        return _block(train_block, runner)
 
 
 def run_training(
@@ -131,8 +139,7 @@ def run_training(
                 if verbose:
                     print(f"[{algo_name}] phases: {phases}", flush=True)
         else:
-            runner, metrics = train_block(runner)
-            metrics = to_host(metrics)
+            runner, metrics = _block(train_block, runner)
         env_steps = steps_of(runner)
         if steps0 is None:
             steps0 = env_steps - steps_per_block

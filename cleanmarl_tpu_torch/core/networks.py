@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map
+from cleanmarl_tpu_torch.core.tracing import span
 
 MASK_NEG = -1e9
 
@@ -332,8 +333,9 @@ def mixer_apply(params, agent_qs: torch.Tensor, state: torch.Tensor) -> torch.Te
 
 def soft_update(target_params, online_params, polyak: float):
     """Polyak averaging θ' ← (1 − τ)·θ' + τ·θ over the whole tree."""
-    return tree_map(lambda t, o: (1.0 - polyak) * t + polyak * o,
-                    target_params, online_params)
+    with span("net.polyak"):
+        return tree_map(lambda t, o: (1.0 - polyak) * t + polyak * o,
+                        target_params, online_params)
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -33,6 +33,7 @@ import torch
 from cleanmarl_tpu_torch.core import optim_transforms as T
 from cleanmarl_tpu_torch.core.networks import global_norm
 from cleanmarl_tpu_torch.core.params import tree_map
+from cleanmarl_tpu_torch.core.tracing import span
 
 
 def _aliases(lr: T.Schedule) -> dict:
@@ -128,16 +129,18 @@ class Optimizer:
 
     def update(self, grads, state, params):
         """→ (new params, new state)."""
-        count, fields = state["count"], self.trees(state)
-        u = grads
-        if self.clip:
-            norm = global_norm(u)
-            u = tree_map(lambda g: torch.where(norm < self.clip, g, (g / norm) * self.clip), u)
-        new = {}
-        for t in self.transforms:
-            u, s = t.update(u, {f: fields[f] for f in t.fields}, params, count)
-            new.update(s)
-        return tree_map(lambda p, d: p + d, params, u), self.layout(count + 1, new)
+        with span("optim.update"):
+            count, fields = state["count"], self.trees(state)
+            u = grads
+            if self.clip:
+                norm = global_norm(u)
+                u = tree_map(lambda g: torch.where(norm < self.clip, g, (g / norm) * self.clip),
+                             u)
+            new = {}
+            for t in self.transforms:
+                u, s = t.update(u, {f: fields[f] for f in t.fields}, params, count)
+                new.update(s)
+            return tree_map(lambda p, d: p + d, params, u), self.layout(count + 1, new)
 
 
 def make_optimizer(name: str, learning_rate: float, clip_gradients: float = 0.0,

@@ -67,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from cleanmarl_tpu_torch.core.params import tree_leaves, tree_map, tree_unflatten
+from cleanmarl_tpu_torch.core.tracing import span
 
 # runner field name → axis carrying the env batch; every other field
 # (params, targets, optimizer states, value-norm stats, host counters) is
@@ -208,13 +209,16 @@ class CommStats:
 COMM = CommStats()
 
 
-def _collective(run: Callable[[], Any], payload: torch.Tensor, device: torch.device) -> None:
-    """``run()``, one collective that sends ``payload``, counted in ``COMM``."""
+def _collective(name: str, run: Callable[[], Any], payload: torch.Tensor,
+                device: torch.device) -> None:
+    """``run()``, one collective that sends ``payload``, counted in
+    ``COMM`` and spanned as ``name`` (``dp.<op>``)."""
     sync = COMM.timed and device.type == "cuda"
     if sync:
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    run()
+    with span(name):
+        run()
     if sync:
         torch.cuda.synchronize(device)
     COMM.seconds += time.perf_counter() - t0
@@ -223,7 +227,7 @@ def _collective(run: Callable[[], Any], payload: torch.Tensor, device: torch.dev
 
 
 def _all_reduce(flat: torch.Tensor) -> None:
-    _collective(lambda: dist.all_reduce(flat), flat, flat.device)
+    _collective("dp.all_reduce", lambda: dist.all_reduce(flat), flat, flat.device)
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -414,7 +418,7 @@ def gather_flags(*flags: torch.Tensor) -> np.ndarray:
         return local.cpu().numpy().astype(bool)
     local = _wire(local)
     parts = [torch.empty_like(local) for _ in range(world)]
-    _collective(lambda: dist.all_gather(parts, local), local, flags[0].device)
+    _collective("dp.all_gather", lambda: dist.all_gather(parts, local), local, flags[0].device)
     both = torch.stack(parts, dim=-1).cpu()         # (k, local envs, world)
     return both.reshape(len(flags), -1).numpy().astype(bool)
 
@@ -451,7 +455,7 @@ def move_rows(tree: Any, src: np.ndarray, src_row: np.ndarray, dst: np.ndarray) 
                            device=out_rows.device)
         counts = np.bincount(src[mine], minlength=world)
         counts[rank] = 0
-        _collective(lambda: dist.all_to_all_single(
+        _collective("dp.all_to_all_single", lambda: dist.all_to_all_single(
             recv, out_rows, counts.tolist(), [len(k) for k in sends]), out_rows, dev)
         recv = recv.to(dev)
         own = torch.cat([recv[:before], own, recv[before:]])
@@ -477,7 +481,7 @@ def rank0_randint(generator: torch.Generator, high: int, n: int) -> np.ndarray:
     else:
         idx = torch.empty((n,), dtype=torch.int64, device=dev)
     idx = _wire(idx)
-    _collective(lambda: dist.broadcast(idx, src=0), idx, dev)
+    _collective("dp.broadcast", lambda: dist.broadcast(idx, src=0), idx, dev)
     return idx.cpu().numpy()
 
 
@@ -494,6 +498,6 @@ def rank0_draw(draw: Callable[[], Sequence[torch.Tensor]], count: int, shape,
     else:
         buf = torch.empty((count,) + tuple(shape), dtype=torch.float32, device=device)
     wire = _wire(buf)
-    _collective(lambda: dist.broadcast(wire, src=0), wire, torch.device(device))
+    _collective("dp.broadcast", lambda: dist.broadcast(wire, src=0), wire, torch.device(device))
     buf = wire.to(device)
     return tuple(x[rank::world].contiguous() for x in buf)

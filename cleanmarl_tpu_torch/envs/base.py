@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from cleanmarl_tpu_torch.core.tracing import span
 from cleanmarl_tpu_torch.types import TimeStep
 
 
@@ -130,22 +131,23 @@ class VecEnv:
 
     def step(self, state, actions, generator=None):
         """actions (num_envs, n_agents) int → (new_state, ts, final)."""
-        state2, ts = self.env.step(state, actions, generator)
-        if not self.auto_reset:
-            return state2, ts, ts
-        reset_state, reset_ts = self.env.reset(self.num_envs, generator)
-        ended = torch.logical_or(ts.done, ts.truncated)
+        with span("env.step"):
+            state2, ts = self.env.step(state, actions, generator)
+            if not self.auto_reset:
+                return state2, ts, ts
+            reset_state, reset_ts = self.env.reset(self.num_envs, generator)
+            ended = torch.logical_or(ts.done, ts.truncated)
 
-        def pick(a, b):
-            return torch.where(ended.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+            def pick(a, b):
+                return torch.where(ended.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
-        new_state = state_where(ended, reset_state, state2)
-        out = ts.replace(
-            obs=pick(reset_ts.obs, ts.obs),
-            state=pick(reset_ts.state, ts.state),
-            avail=pick(reset_ts.avail, ts.avail),
-        )
-        return new_state, out, ts
+            new_state = state_where(ended, reset_state, state2)
+            out = ts.replace(
+                obs=pick(reset_ts.obs, ts.obs),
+                state=pick(reset_ts.state, ts.state),
+                avail=pick(reset_ts.avail, ts.avail),
+            )
+            return new_state, out, ts
 
     def sample(self, generator, avail):
         return self.env.sample(generator, avail)

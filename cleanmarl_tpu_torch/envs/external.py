@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from cleanmarl_tpu_torch.core.device import resolve_device
+from cleanmarl_tpu_torch.core.tracing import span
 from cleanmarl_tpu_torch.envs.base import VecEnv, categorical
 from cleanmarl_tpu_torch.types import TimeStep
 
@@ -165,12 +166,13 @@ class HostVecEnv:
     def step(self, state, actions, generator=None):
         """actions (num_envs, n_agents) → (state + 1, ts, final)."""
         del generator
-        live, final = self._host_step(actions.detach().cpu().numpy())
-        if not self.auto_reset:            # the live view is the pre-reset one
-            ts, = self._to_ts(live)
-            return state + 1, ts, ts
-        ts, final_ts = self._to_ts(live, final)
-        return state + 1, ts, final_ts
+        with span("env.step"):
+            live, final = self._host_step(actions.detach().cpu().numpy())
+            if not self.auto_reset:            # the live view is the pre-reset one
+                ts, = self._to_ts(live)
+                return state + 1, ts, ts
+            ts, final_ts = self._to_ts(live, final)
+            return state + 1, ts, final_ts
 
     def sample(self, generator, avail):
         logits = torch.where(avail.bool(), 0.0, float("-inf"))

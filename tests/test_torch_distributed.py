@@ -352,6 +352,11 @@ def test_profile_dir_writes_a_trace(tmp_path, capsys):
     assert runner.step == cfg.total_timesteps
     traces = list((tmp_path / "prof").iterdir())
     assert traces and all(p.name.endswith(".pt.trace.json") for p in traces)
+    # the program's spans (core/tracing.py) are annotations of the trace
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"driver.block", "driver.to_host", "ppo.rollout", "env.step", "ppo.minibatch",
+            "optim.update"} <= spans, sorted(spans)
     assert "[MAPPO] phases: {'perf/rollout_s'" in capsys.readouterr().out
     # timing the phases leaves the run as it was: params, optimizer state
     # and the generator's stream equal those of a run without profiling
