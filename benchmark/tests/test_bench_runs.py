@@ -43,6 +43,10 @@ def test_result_line_schema(name, trace):
         assert "mfu" in res["metrics"] and "env_steps_per_s.window" in res["metrics"]
     else:
         assert set(res["metrics"]) == set(units)
+    # the window's blocks; a traced run's profiled block comes after them
+    profiled = harness.family(cell).TRACE_BLOCKS if trace else 0
+    assert len(res["blocks"]) == res["attempted"] - profiled
+    assert all(len(b) == 2 for b in res["blocks"])
     for c in res["checks"].values():
         assert set(c) == {"value", "limit"}
     assert harness.forbidden_modules() == []

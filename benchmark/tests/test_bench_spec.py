@@ -56,6 +56,10 @@ def test_entries_keys_names_and_units():
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert m["moves"] in e2e and set(m["workloads"]) <= cells
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+    # a per-layer metric moves an end-to-end metric that each of its cells reports
+    for m in SPEC["per_layer"]:
+        target = next(e for e in SPEC["end_to_end"] if e["name"] == m["moves"])
+        assert set(m["workloads"]) <= set(target.get("workloads", cells)), m["name"]
     all_names = [x["name"] for x in SPEC["configs"] + SPEC["workloads"] + metrics]
     assert len(set(all_names)) == len(all_names)
     for cell in cells:
