@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from cleanmarl_tpu_torch.core.tracing import span
+from cleanmarl_tpu_torch.envs import step_graph
 from cleanmarl_tpu_torch.types import TimeStep
 
 
@@ -113,6 +114,16 @@ class VecEnv:
     reset (selected with ``torch.where``, no host sync), while the
     returned TimeStep keeps the terminal reward/done/truncated/info; the
     pre-reset TimeStep is returned as ``final``.
+
+    On a card the step replays from CUDA graphs (``envs/step_graph.py``),
+    one ``StepGraph`` per instance, bound to the generator of the latest
+    call: the first call with a generator runs eagerly (the warm-up), the
+    next captures and replays, later ones replay. A call with another
+    generator drops the graph and runs eagerly, as the warm-up of that
+    generator's graph. ``generator=None``, inputs laid out otherwise than
+    the captured ones, and a CPU env always run eagerly. Either way the
+    call is functional: it writes none of its inputs, and returns tensors
+    that no later call writes.
     """
 
     def __init__(self, env: Environment, num_envs: int, auto_reset: bool = True):
@@ -125,6 +136,8 @@ class VecEnv:
         self.n_actions = env.n_actions
         self.episode_limit = env.episode_limit
         self.device = env.device
+        self._generator = None      # the generator the graph is bound to
+        self._graph = None
 
     def reset(self, generator=None):
         return self.env.reset(self.num_envs, generator)
@@ -132,22 +145,42 @@ class VecEnv:
     def step(self, state, actions, generator=None):
         """actions (num_envs, n_agents) int → (new_state, ts, final)."""
         with span("env.step"):
-            state2, ts = self.env.step(state, actions, generator)
-            if not self.auto_reset:
-                return state2, ts, ts
-            reset_state, reset_ts = self.env.reset(self.num_envs, generator)
-            ended = torch.logical_or(ts.done, ts.truncated)
+            graph = self._graph_for(state, actions, generator)
+            if graph is not None:
+                return graph(state, actions)
+            return self._eager_step(state, actions, generator)
 
-            def pick(a, b):
-                return torch.where(ended.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    def _graph_for(self, state, actions, generator):
+        if generator is None or not step_graph.capturable(self.env):
+            return None
+        if generator is not self._generator:
+            self._generator, self._graph = generator, None
+            return None
+        if self._graph is None:
+            self._graph = step_graph.StepGraph(self, state, actions, generator)
+        return self._graph if self._graph.fits(state, actions) else None
 
-            new_state = state_where(ended, reset_state, state2)
-            out = ts.replace(
-                obs=pick(reset_ts.obs, ts.obs),
-                state=pick(reset_ts.state, ts.state),
-                avail=pick(reset_ts.avail, ts.avail),
-            )
-            return new_state, out, ts
+    def _eager_step(self, state, actions, generator):
+        state2, ts = self.env.step(state, actions, generator)
+        if not self.auto_reset:
+            return state2, ts, ts
+        return (*self._auto_reset(state2, ts, generator), ts)
+
+    def _auto_reset(self, state2, ts, generator):
+        """The all-env reset and the selection → (new_state, ts)."""
+        reset_state, reset_ts = self.env.reset(self.num_envs, generator)
+        ended = torch.logical_or(ts.done, ts.truncated)
+
+        def pick(a, b):
+            return torch.where(ended.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+        new_state = state_where(ended, reset_state, state2)
+        out = ts.replace(
+            obs=pick(reset_ts.obs, ts.obs),
+            state=pick(reset_ts.state, ts.state),
+            avail=pick(reset_ts.avail, ts.avail),
+        )
+        return new_state, out
 
     def sample(self, generator, avail):
         return self.env.sample(generator, avail)
