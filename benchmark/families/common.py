@@ -32,10 +32,11 @@ def to_cpu(tree):
     return C.tmap(lambda x: x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x, tree)
 
 
-def hand_over(runner, inputs: dict, env_name: str, env_type: str, device):
-    """The benchmark's first env state and generator, in the program's types."""
+def hand_over(runner, inputs: dict, params: dict, device):
+    """The benchmark's first env state and generator, in the program's types;
+    ``params`` the configuration's, which name the env."""
     n_loc = runner.obs.shape[0]
-    env = C.make_env(env_type, env_name, n_loc, device)
+    env = C.make_env(params, n_loc, device)
     state, ts = env.reset(torch.Generator(device).manual_seed(inputs["reset_seed"]))
     cls = type(runner.env_state)
     fields = {f: getattr(state, f).clone() for f in cls.__dataclass_fields__}
@@ -51,8 +52,7 @@ class Recorder:
     the actions drawn; the losses of update 1's first ``steps`` steps and of
     update 2's last ``steps``; Adam's first moment after step 1, the
     parameters after step ``steps`` and after update 1; the parameters and
-    state before update 2's last ``steps`` steps, and the first of those
-    steps' gradients and the parameters after it."""
+    state before update 2's last ``steps`` steps."""
 
     def __init__(self, module, n_steps: int, rollout_len: int, steps: int,
                  keys=("actor", "critic")):
@@ -60,7 +60,7 @@ class Recorder:
                                                               steps, keys)
         self.acts, self.vag_calls, self.upd_calls = [], 0, 0
         self.rec = {"losses": [], **{k: {} for k in (
-            "mu1", "params3", "p_mid", "p_late", "opt_late", "grads_late", "params_late")}}
+            "mu1", "params3", "p_mid", "p_late", "opt_late")}}
 
     def _recorded(self, step: int) -> bool:
         return step <= self.steps or 2 * self.S - self.steps < step <= 2 * self.S
@@ -99,8 +99,6 @@ class Recorder:
                 r["p_mid"][key] = to_cpu(new_params)
             if step == 2 * S - k:
                 r["p_late"][key], r["opt_late"][key] = to_cpu(new_params), to_cpu(new_state)
-            if step == 2 * S - k + 1:
-                r["grads_late"][key], r["params_late"][key] = to_cpu(grads), to_cpu(new_params)
             return new_params, new_state
 
         self.module.categorical, self.module.value_and_grad = categorical, value_and_grad
@@ -160,22 +158,19 @@ def loss_gap(prog_losses, ref_losses) -> float:
 def training_numbers(prog: dict, ref: dict, init: dict, keys) -> dict:
     """The numbers of a training cell from the program's record and the
     reference's (``reference/mappo``'s keys); ``init`` the weights both
-    started from. Each gap is the worse of the two stages: update 1's first
+    started from. The losses are those of both stages: update 1's first
     steps from the inputs, and update 2's last steps from the program's
-    weights and state before them (the gradient and the change of the first
-    of those: one step, since past it PPO's clip, a kink, lets rounding
-    switch single samples' terms on or off)."""
+    weights and state before them. The gradient is step 1's and the change
+    that of the first steps: in update 2's, PPO's clip, a kink in the
+    gradient, lets rounding switch single samples' terms on or off, where
+    the loss, continuous there, does not move."""
     b1 = 1.0 - C.ADAM_B1
     grad, change = [], []
     for k in keys:
         g_p = C.tmap(lambda m: m.double() / b1, prog["mu1"][k])
         g_r = C.tmap(lambda m: m.detach().cpu().double() / b1, ref["mu1"][k])
         grad.append(norm_gap(g_p, g_r))
-        grad.append(norm_gap(prog["grads_late"][k], ref["grads_late"][k]))
         change.append(norm_gap(delta(prog["params3"][k], init[k]),
                                delta(ref["params3"][k], init[k]), moved(ref["grads1"][k])))
-        change.append(norm_gap(delta(prog["params_late"][k], prog["p_late"][k]),
-                               delta(ref["params_late"][k], prog["p_late"][k]),
-                               moved(ref["grads_late"][k])))
     return {"loss_gap": loss_gap(prog["losses"], ref["losses"]),
             "grad_gap": max(grad), "change_gap": max(change)}

@@ -6,6 +6,12 @@ benchmark's inputs (weights, first env state, generator), and runs the
 window's own call, ``train_block``, through the first two iterations with
 the recorder on (``families/common.Recorder``), then one block more; the
 same runner goes on into the window.
+
+A family of the same program path with a reference of its own is a short
+file that imports this one's ``Run``, ``setup``, ``check``, ``control``,
+``shapes``, ``GAINS``, ``numbers`` and ``TRACE_BLOCKS`` and defines its own
+``reference`` (the reference module) and ``ref_cfg``: this file's code
+looks both up on the cell's family module (``harness.family``).
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import math
 
 import torch
 
+from benchmark import harness
 from benchmark import yardstick as Y
 from benchmark.families import common
 from benchmark.reference import common as C
@@ -23,8 +30,7 @@ TRACE_BLOCKS = 1
 
 def _dims(cell: dict, device):
     p = cell["config_file"]["params"]
-    env = C.make_env(p["env_type"], p["env_name"], 1, device)
-    return env, p
+    return C.make_env(p, 1, device), p
 
 
 def shapes(cell: dict, device) -> dict:
@@ -39,7 +45,8 @@ GAINS = {"actor": {"/head/w": 0.01}, "critic": {"/head/w": 1.0}}
 
 def ref_cfg(cell: dict) -> dict:
     """The configuration file's values, which state every option the
-    program reads, and the traffic's envs."""
+    program reads, and the traffic's envs; the options this reference does
+    not follow are refused by name."""
     p = dict(cell["config_file"]["params"])
     for k in ("normalize_reward", "normalize_advantage", "normalize_return",
               "normalize_values", "death_masking", "anneal_lr", "anneal_entropy",
@@ -71,7 +78,7 @@ class Run:
         self.runner = runner.replace(
             actor_params=C.tmap(torch.clone, ins["params"]["actor"]),
             critic_params=C.tmap(torch.clone, ins["params"]["critic"]),
-            **common.hand_over(runner, ins, cfg.env_name, cfg.env_type, device))
+            **common.hand_over(runner, ins, cell["config_file"]["params"], device))
         del ins, runner
         env, _ = _dims(cell, device)
         self.steps_per_block = self.meta["steps_per_block"]
@@ -81,7 +88,7 @@ class Run:
         self.n_agents = env.n_agents
         self.flops = 0.0
         with common.Recorder(ppo_common, cfg.epochs * cfg.num_minibatches,
-                             self.meta["rollout_len"], reference.STEPS) as rec:
+                             self.meta["rollout_len"], harness.family(cell).reference.STEPS) as rec:
             for _ in range(math.ceil(2 / cfg.log_interval)):
                 self.block()
         self.capture = rec.rec
@@ -136,8 +143,9 @@ def setup(cell, seed, device) -> Run:
 
 def check(cell: dict, seed: int, capture: dict, device: str) -> dict:
     """The numbers of the program's run against the reference's."""
+    fam = harness.family(cell)
     ins = common.inputs(seed, device, shapes(cell, device), GAINS)
-    ref = reference.run(ref_cfg(cell), ins, device, given=capture)
+    ref = fam.reference.run(fam.ref_cfg(cell), ins, device, given=capture)
     return numbers(capture, ref, ins["params"])
 
 
@@ -150,8 +158,9 @@ def numbers(prog: dict, ref: dict, init: dict) -> dict:
 def control(cell: dict, seed: int, device: str, tf32: bool = True, fault: str = "") -> dict:
     """The reference in the program's place, in TF32 or with a fault
     planted, judged by the reference in float32."""
+    fam = harness.family(cell)
     ins = common.inputs(seed, device, shapes(cell, device), GAINS)
-    cfg = ref_cfg(cell)
-    low = common.to_cpu(reference.run(cfg, ins, device, tf32=tf32, fault=fault))
-    ref = reference.run(cfg, ins, device, given=low)
+    cfg = fam.ref_cfg(cell)
+    low = common.to_cpu(fam.reference.run(cfg, ins, device, tf32=tf32, fault=fault))
+    ref = fam.reference.run(cfg, ins, device, given=low)
     return numbers(low, ref, ins["params"])

@@ -183,12 +183,14 @@ def gap_below_best(scores, chosen):
 
 
 def altered(actions, scores):
-    """The fault "an answer altered where it is produced": env 0's first
-    agent takes its lowest-scoring available action instead."""
+    """The fault "an answer altered where it is produced": the first agent,
+    env by env, with more than one action to choose from (env 0's first
+    where it has) takes its lowest-scoring available action instead."""
     worst = torch.where(scores > MASK_NEG / 2, scores, float("inf")).argmin(-1)
-    out = actions.clone()
-    out[0, 0] = worst[0, 0]
-    return out
+    first = int((worst != actions).flatten().int().argmax())
+    out = actions.clone().flatten()
+    out[first] = worst.flatten()[first]
+    return out.view_as(actions)
 
 
 def adam_init(params):
@@ -231,22 +233,25 @@ def lambda_returns(reward, ended, values, bootstrap, gamma, lam):
 
 
 # ---------------------------------------------------------------------------
-# the env batch: agent ids on the observation and auto-reset
+# the env batch: SMAClite's maps, agent ids on the observation, auto-reset
 # ---------------------------------------------------------------------------
 class VecEnv:
-    """``num_envs`` copies of ``env`` with one-hot agent ids appended to each
-    observation; an env that ends takes a fresh reset's obs, state and avail
-    (every step draws a reset for the whole batch, as the program does),
-    the step's reward and end flags kept."""
+    """``num_envs`` copies of ``env``, with one-hot agent ids appended to each
+    observation where ``agent_ids`` is set; an env that ends takes a fresh
+    reset's obs, state and avail (every step draws a reset for the whole
+    batch, as the program does), the step's reward and end flags kept."""
 
-    def __init__(self, env, num_envs: int):
-        self.env, self.num_envs = env, num_envs
+    def __init__(self, env, num_envs: int, agent_ids: bool):
+        self.env, self.num_envs, self.agent_ids = env, num_envs, agent_ids
         self.n_agents, self.n_actions = env.n_agents, env.n_actions
-        self.obs_dim, self.state_dim = env.obs_dim + env.n_agents, env.state_dim
+        self.obs_dim = env.obs_dim + (env.n_agents if agent_ids else 0)
+        self.state_dim = env.state_dim
         self.episode_limit = env.episode_limit
         self.eye = torch.eye(env.n_agents, device=env.device)
 
     def _ids(self, ts):
+        if not self.agent_ids:
+            return ts
         eye = self.eye.expand(ts.obs.shape[0], -1, -1)
         return ts.replace(obs=torch.cat([ts.obs, eye], dim=-1))
 
@@ -270,14 +275,41 @@ class VecEnv:
         return new_state, out, ts
 
 
-def make_env(env_type: str, env_name: str, num_envs: int, device) -> VecEnv:
-    if env_type != "smaclite":
-        raise ValueError(f"the reference has no env {env_type!r}")
-    from benchmark.reference import smaclite
+def _smaclite_units(env_name: str):
+    """(ally types, enemy types) of a SMAClite map, named as the program
+    names it: ``Nm``, ``Nm_vs_Mm``, ``NsMz``, ``MMM``, ``MMM2``."""
     import re
 
     m = re.fullmatch(r"(\d+)m", env_name)
-    if not m:
-        raise ValueError(f"the reference has no SMAClite map {env_name!r}")
-    n = int(m.group(1))
-    return VecEnv(smaclite.MicroCombat(["marine"] * n, ["marine"] * n, device=device), num_envs)
+    if m:
+        return ["marine"] * int(m.group(1)), ["marine"] * int(m.group(1))
+    m = re.fullmatch(r"(\d+)m_vs_(\d+)m", env_name)
+    if m:
+        return ["marine"] * int(m.group(1)), ["marine"] * int(m.group(2))
+    m = re.fullmatch(r"(\d+)s(\d+)z", env_name)
+    if m:
+        types = ["stalker"] * int(m.group(1)) + ["zealot"] * int(m.group(2))
+        return types, list(types)
+    mmm = ["medivac"] + ["marauder"] * 2 + ["marine"] * 7
+    if env_name.upper() == "MMM":
+        return mmm, list(mmm)
+    if env_name.upper() == "MMM2":
+        return mmm, ["medivac"] + ["marauder"] * 3 + ["marine"] * 8
+    raise ValueError(f"the reference has no SMAClite map {env_name!r}")
+
+
+def make_env(cfg: dict, num_envs: int, device) -> VecEnv:
+    """The env a configuration's ``params`` name (``env_type``, ``env_name``,
+    ``agent_ids``, ``unit_collisions``), ``num_envs`` of it, from the
+    frozen copy of SMAClite."""
+    from benchmark.reference import smaclite
+
+    if cfg["env_type"] != "smaclite":
+        raise ValueError(f"the reference has no env_type {cfg['env_type']!r}")
+    for key in ("agent_ids", "unit_collisions"):
+        if not isinstance(cfg[key], bool):
+            raise ValueError(f"the reference takes {key} true or false, not {cfg[key]!r}")
+    allies, enemies = _smaclite_units(cfg["env_name"])
+    env = smaclite.MicroCombat(allies, enemies, unit_collisions=cfg["unit_collisions"],
+                               device=device)
+    return VecEnv(env, num_envs, cfg["agent_ids"])

@@ -19,8 +19,7 @@ first ``STEPS`` optimizer steps of update 1 from the benchmark's inputs;
 then rollout 2 from its own carried env state, hidden state and generator,
 acting with the program's weights after update 1; then the last ``STEPS``
 steps of update 2 (the last epoch's last minibatches) from the program's
-weights and Adam state before them (their losses; the first one's
-gradients and change). As the control (``given`` None) it runs both
+weights and Adam state before them (their losses). As the control (``given`` None) it runs both
 iterations whole and records the same things.
 """
 from __future__ import annotations
@@ -37,9 +36,7 @@ def run(cfg: dict, inputs: dict, device, given=None, tf32: bool = False, fault: 
     """→ the record: "actions" [per rollout (T, N, n) uint8], "losses"
     [actor, critic per recorded step], "mu1" (Adam's first moment after step
     1), "grads1", "params3", "p_mid" (after update 1), "p_late", "opt_late"
-    (before update 2's last ``STEPS`` steps), "grads_late" and "params_late"
-    (the first of those steps' gradients, and the parameters after it), and
-    with ``given``
+    (before update 2's last ``STEPS`` steps), and with ``given``
     "action_gap". ``fault`` plants one of the faults the check must catch
     ("half": the loss over half of each minibatch; "altered": one action
     changed where it was drawn; "unchanged": Adam's step returns the
@@ -51,7 +48,7 @@ def run(cfg: dict, inputs: dict, device, given=None, tf32: bool = False, fault: 
     def dev(tree):
         return C.tmap(lambda x: x.to(device) if torch.is_tensor(x) else x, tree)
 
-    env = C.make_env(cfg["env_type"], cfg["env_name"], cfg["num_envs"], device)
+    env = C.make_env(cfg, cfg["num_envs"], device)
     gen = torch.Generator(device).manual_seed(inputs["gen_seed"])
     env_state, ts = env.reset(torch.Generator(device).manual_seed(inputs["reset_seed"]))
     carry = (env_state, ts.obs, ts.state, ts.avail,
@@ -89,8 +86,6 @@ def run(cfg: dict, inputs: dict, device, given=None, tf32: bool = False, fault: 
                 out["mu1"] = {key: opt[key]["mu"] for key in KEYS}
             if it == 0 and k == STEPS - 1:
                 out["params3"] = params
-            if it == 1 and k == late:
-                out["grads_late"], out["params_late"] = rec["grads"], params
     return out
 
 

@@ -1,18 +1,20 @@
 """On the card (``-m cuda``; skipped without one): at a size a test run
-holds (4096 envs), the program's outputs pass the cell's limits on three seeds, and the control
-(the reference in TF32 in the program's place) and each planted fault fail
-one of them."""
+holds (the cell's envs, at most 4096), the program's outputs pass the
+cell's limits on three seeds, and the control (the reference in TF32 in the
+program's place) and each planted fault fail one of them."""
 import pytest
+from conftest import CELLS
 
 from benchmark import harness
 
-SIZES = {"mappo_rnn_3m-8192envs": 4096}
+MAX_ENVS = 4096
 SEEDS = (2**31 + 101, 2**31 + 102, 2**31 + 103)
 
 
 def _cell(name):
     c = harness.cell_spec(name)
-    c["traffic_file"] = dict(c["traffic_file"], num_envs=SIZES[name])
+    n = min(c["traffic_file"]["num_envs"], MAX_ENVS)
+    c["traffic_file"] = dict(c["traffic_file"], num_envs=n)
     return c
 
 
@@ -21,7 +23,7 @@ def _fails(cell, nums):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(SIZES))
+@pytest.mark.parametrize("name", CELLS)
 def test_program_passes_control_and_faults_fail(card, name):
     cell = _cell(name)
     fam = harness.family(cell)
