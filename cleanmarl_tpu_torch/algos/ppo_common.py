@@ -48,7 +48,7 @@ from cleanmarl_tpu_torch.core.metrics import EpisodeStats
 from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import value_and_grad
 from cleanmarl_tpu_torch.core.rewards import standardize
-from cleanmarl_tpu_torch.core.tracing import span
+from cleanmarl_tpu_torch.core.tracing import count, span
 from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.base import categorical
@@ -325,13 +325,19 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
 
     def _ppo_update(runner: PPORunnerState, traj, h0):
         with torch.no_grad(), span("ppo.returns"):
-            alive = alive_mask(traj["avail"]) if cfg.death_masking else None
+            alive = None
+            if cfg.death_masking:
+                with span("ppo.death_mask"):
+                    alive = alive_mask(traj["avail"])
+                    count("ppo.agent_steps", alive.numel())
+                    count("ppo.alive_agent_steps", alive)
             values = critic_values(runner.critic_params, traj["obs"], traj["state"])
             vboot = critic_values(runner.critic_params, runner.obs, runner.state)
             if cfg.normalize_values:
-                sigma = torch.sqrt(runner.vnorm["var"]) + 1e-8
-                values = values * sigma + runner.vnorm["mean"]
-                vboot = vboot * sigma + runner.vnorm["mean"]
+                with span("ppo.value_norm"):
+                    sigma = torch.sqrt(runner.vnorm["var"]) + 1e-8
+                    values = values * sigma + runner.vnorm["mean"]
+                    vboot = vboot * sigma + runner.vnorm["mean"]
             team_reward = traj["reward"]
             if cfg.normalize_reward:
                 team_reward = standardize(team_reward)
@@ -340,14 +346,16 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             returns, adv = lambda_advantages(reward, ended, values, vboot,
                                              cfg.gamma, cfg.td_lambda)
             if cfg.normalize_advantage:
-                adv = wstandardize(adv, alive)
+                with span("ppo.adv_norm"):
+                    adv = wstandardize(adv, alive)
             if cfg.normalize_return:
                 mu, std = dp.global_mean_std(returns.mean(-1))
                 returns = (returns - mu) / (std + 1e-8)
             vnorm = runner.vnorm
             if cfg.normalize_values:
-                vnorm = vnorm_update(vnorm, returns, alive)
-                returns = (returns - vnorm["mean"]) / (torch.sqrt(vnorm["var"]) + 1e-8)
+                with span("ppo.value_norm"):
+                    vnorm = vnorm_update(vnorm, returns, alive)
+                    returns = (returns - vnorm["mean"]) / (torch.sqrt(vnorm["var"]) + 1e-8)
 
         ent_coef = cfg.entropy_coef
         if cfg.anneal_entropy:
@@ -360,15 +368,15 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
                 return torch.utils.checkpoint.checkpoint(
                     actor_logits_seq, *args, use_reentrant=False)
 
-        def share(x, mb):
+        def share(x, mb, alive_count):
             """This rank's share of the minibatch's (alive-weighted) mean:
             its sum over the count of every rank (the mean on one rank)."""
             w = mb.get("alive")
             if w is not None:
-                return (x * w).sum() / mb["count"]
+                return (x * w).sum() / alive_count
             return dp.mean_share(x)
 
-        def actor_loss_fn(actor_params, mb):
+        def actor_loss_fn(actor_params, mb, alive_count=None):
             logits = logits_seq(actor_params, mb["h0"], mb["obs"], mb["avail"],
                                 mb["ended"])
             logp_all = torch.log_softmax(logits, dim=-1)
@@ -377,17 +385,18 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
             ratio = torch.exp(log_ratio)
             pg1 = mb["adv"] * ratio
             pg2 = mb["adv"] * torch.clamp(ratio, 1.0 - cfg.ppo_clip, 1.0 + cfg.ppo_clip)
-            pg = share(torch.minimum(pg1, pg2), mb)
+            pg = share(torch.minimum(pg1, pg2), mb, alive_count)
             p = torch.exp(logp_all)
-            entropy = share(-torch.sum(p * logp_all, dim=-1), mb)
+            entropy = share(-torch.sum(p * logp_all, dim=-1), mb, alive_count)
             loss = -pg - ent_coef * entropy
-            kl = share((ratio - 1.0) - log_ratio, mb)
-            clipped = share((torch.abs(ratio - 1.0) > cfg.ppo_clip).float(), mb)
+            kl = share((ratio - 1.0) - log_ratio, mb, alive_count)
+            clipped = share((torch.abs(ratio - 1.0) > cfg.ppo_clip).float(), mb,
+                            alive_count)
             return loss, (entropy, kl, clipped)
 
-        def critic_loss_fn(critic_params, mb):
+        def critic_loss_fn(critic_params, mb, alive_count=None):
             v = critic_values(critic_params, mb["obs"], mb["state"], dtype=mm_dtype)
-            return share(torch.square(v - mb["returns"]), mb), ()
+            return share(torch.square(v - mb["returns"]), mb, alive_count), ()
 
         full = {k: traj[k] for k in ("obs", "state", "avail", "action", "logp", "ended")}
         full["adv"], full["returns"] = adv, returns
@@ -399,8 +408,9 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
         mb_size = N // n_mb
         slices = [slice(i * mb_size, (i + 1) * mb_size) for i in range(n_mb)]
         if cfg.death_masking:
-            # every minibatch's alive count over the ranks, in one collective
-            counts = dp.global_sum(*(alive[:, sl].sum() for sl in slices))
+            with span("ppo.death_mask"):
+                # every minibatch's alive count over the ranks, in one collective
+                counts = dp.global_sum(*(alive[:, sl].sum() for sl in slices))
         epoch_ms = []
         for _ in range(cfg.epochs):
             with span("ppo.epoch"):
@@ -409,13 +419,17 @@ def make_train(cfg: PPOConfig, env=None, centralized: bool = False,
                     with span("ppo.minibatch"):
                         mb = {k: v[:, sl] for k, v in full.items()}
                         mb["h0"] = h0[sl]
+                        a_fn, c_fn = actor_loss_fn, critic_loss_fn
                         if cfg.death_masking:
-                            mb["count"] = torch.clamp(counts[i], min=1.0)
+                            # every entry of mb is an env-axis slice; the count is not
+                            n_alive = torch.clamp(counts[i], min=1.0)
+                            a_fn = functools.partial(actor_loss_fn, alive_count=n_alive)
+                            c_fn = functools.partial(critic_loss_fn, alive_count=n_alive)
                         with span("ppo.actor_grad"):
                             a_loss, (entropy, kl, clipped), a_grads = value_and_grad(
-                                actor_loss_fn, a_params, mb)
+                                a_fn, a_params, mb)
                         with span("ppo.critic_grad"):
-                            c_loss, _, c_grads = value_and_grad(critic_loss_fn, c_params, mb)
+                            c_loss, _, c_grads = value_and_grad(c_fn, c_params, mb)
                         # the gradients and the loss metrics of every rank, summed
                         a_grads, c_grads, (a_loss, c_loss, entropy, kl, clipped) = (
                             dp.all_reduce_sum([a_grads, c_grads,

@@ -1,16 +1,25 @@
-"""Spans at the port's layer boundaries.
+"""Spans and counters at the port's layer boundaries.
 
 ``span(name)`` marks one call of a layer, named ``<layer>.<what>``
-(``env.step``, ``optim.update``, ...). ``recording()`` switches spans on
-for its extent and yields the ``Record`` they fill:
+(``env.step``, ``optim.update``, ...); ``count(name, value)`` adds to a
+counter of the same kind of name (``ppo.alive_agent_steps``).
+``recording()`` switches both on for its extent and yields the ``Record``
+they fill:
 
     with recording() as rec:
         runner, metrics = train_block(runner)
     rec.spans["env.step"]      # {"calls", "host_s", "self_s"}
+    rec.counter_values()       # {"ppo.agent_steps": ..., ...}
 
 With no recording open, ``span`` returns one shared no-op context: it
 reads no clock, enters no ``record_function`` and allocates nothing, so a
-run that records nothing pays one check a span.
+run that records nothing pays one check a span; ``count`` returns after
+the same check.
+
+A counter takes a host number or a device tensor. A tensor is summed on
+its device and stays there: counting reads nothing back, so it costs no
+host sync. ``Record.counter_values`` reads every counter to the host in
+one transfer, once the recording has closed.
 
 With a recording open, each span adds to its name's entry: ``calls``;
 ``host_s``, the host's wall between entry and exit
@@ -27,8 +36,9 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
+import torch
 from torch.autograd import profiler as _profiler
 
 _OFF = contextlib.nullcontext()
@@ -36,11 +46,21 @@ _record: Optional["Record"] = None
 
 
 class Record:
-    """What the spans of one recording measured, by name."""
+    """What the spans and counters of one recording measured, by name."""
 
     def __init__(self):
         self.spans: Dict[str, dict] = {}
+        self.counters: Dict[str, Union[float, torch.Tensor]] = {}
         self._open: List[list] = []       # [name, child ns] of each open span, innermost last
+
+    def counter_values(self) -> Dict[str, float]:
+        """Every counter as a host float, the device's in one transfer."""
+        out = {k: float(v) for k, v in self.counters.items() if not torch.is_tensor(v)}
+        on_device = [k for k, v in self.counters.items() if torch.is_tensor(v)]
+        if on_device:
+            values = torch.stack([self.counters[k] for k in on_device]).tolist()
+            out.update(zip(on_device, values))
+        return out
 
     def _stats(self, name: str) -> dict:
         s = self.spans.get(name)
@@ -90,9 +110,22 @@ def span(name: str):
     return _Span(name, rec)
 
 
+def count(name: str, value) -> None:
+    """Add ``value`` (a number, or a tensor summed on its device in
+    float64) to the counter ``name`` while a recording is open; nothing
+    otherwise."""
+    rec = _record
+    if rec is None:
+        return
+    if torch.is_tensor(value):
+        value = value.detach().sum(dtype=torch.float64)
+    rec.counters[name] = rec.counters.get(name, 0) + value
+
+
 @contextlib.contextmanager
 def recording():
-    """Spans on for the extent of the block → the ``Record`` they fill."""
+    """Spans and counters on for the extent of the block → the ``Record``
+    they fill."""
     global _record
     if _record is not None:
         raise RuntimeError("a recording is already open")
