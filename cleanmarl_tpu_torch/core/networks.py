@@ -172,9 +172,11 @@ def _gru_seq_kernel(params, h0, x_seq, reset_seq):
         r = reset_seq.reshape(reset_seq.shape
                               + (1,) * (1 + len(batch_shape) - reset_seq.dim()))
         keep = (1.0 - r.float()).expand((T,) + tuple(batch_shape)).reshape(T, m0)
+    # gi is this function's own temporary: the backward writes its
+    # gradient over it (consume_gi) rather than into a second buffer
     h_final, h_seq = gru_seq(params["gru"]["wh"], params["gru"]["bh"],
                              h0.reshape(m0, H), gi.reshape(T, m0, 3 * H),
-                             keep.contiguous())
+                             keep.contiguous(), consume_gi=True)
     return (h_final.reshape(tuple(batch_shape) + (H,)),
             h_seq.reshape((T,) + tuple(batch_shape) + (H,)))
 

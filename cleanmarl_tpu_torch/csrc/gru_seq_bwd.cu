@@ -87,6 +87,12 @@
 //    of the first k tile. Each block writes its partial, the reduce
 //    kernel adds the S partials in a fixed order: no float atomics.
 //
+// dgi may be gi itself (ops/gru_kernel.py: GruSeq with consume_gi), so
+// the two recurrences leave those two pointers without __restrict__: the
+// thread that stores dgi[t] at a row and column is the one that loaded
+// gi[t] there earlier in the same step, no thread reads another's, and no
+// step reads gi[t] again. The dw kernel reads dgi and never gi.
+//
 // Bounds (T = 60, M = 3072, H = 128; chip_smoke.py:gru_bounds): the
 // recurrence does 2 * 2*T*M*H*3H FLOP against 853 MB, the weight gradient
 // 2*T*M*H*3H against 378 MB (h0, h_seq[:T-1], keep[:T-1], dgi's first 2H
@@ -120,9 +126,9 @@ template <int H>
 __global__ void __launch_bounds__(4 * H / JN, 1) gru_seq_bwd_tc_kernel(
     const float* __restrict__ wh, const float* __restrict__ bh,
     const float* __restrict__ h0, const float* __restrict__ hseq,
-    const float* __restrict__ gi, const float* __restrict__ keep,
+    const float* gi, const float* __restrict__ keep,
     const float* __restrict__ g_hseq, const float* __restrict__ g_hfinal,
-    float* __restrict__ dgi, float* __restrict__ dghn, float* __restrict__ dh0, int T,
+    float* dgi, float* __restrict__ dghn, float* __restrict__ dh0, int T,
     int M) {
   constexpr int H3 = 3 * H, LD = H + 4, NT = 4 * H / JN;
   extern __shared__ float4 smem4[];
@@ -361,9 +367,9 @@ template <int TM>
 __global__ void __launch_bounds__(TM == 16 ? 256 : 512) gru_seq_bwd_l2_kernel(
     const float* __restrict__ wh, const float* __restrict__ whT,
     const float* __restrict__ bh, const float* __restrict__ h0,
-    const float* __restrict__ hseq, const float* __restrict__ gi,
+    const float* __restrict__ hseq, const float* gi,
     const float* __restrict__ keep, const float* __restrict__ g_hseq,
-    const float* __restrict__ g_hfinal, float* __restrict__ dgi,
+    const float* __restrict__ g_hfinal, float* dgi,
     float* __restrict__ dghn, float* __restrict__ dh0, int T, int M, int H) {
   extern __shared__ float4 smem4[];
   float* hprev = reinterpret_cast<float*>(smem4);  // TM x H

@@ -37,6 +37,12 @@ run.
 same residuals as ``_gru_seq_fwd``. Each wrapper launches its kernel for
 CUDA tensors and runs its plain version for CPU tensors; it never falls
 back from one to the other. ``LAUNCHES`` counts kernel launches.
+
+``gru_seq_bwd`` (and its plain version) may write dgi over gi, which the
+recurrence has read by then. ``gru_seq(..., consume_gi=True)`` has the
+backward do so, for a caller whose gi is its own temporary: the backward
+then holds one (T, M, 3H) buffer where it held two, and gi's version is
+bumped, so that a second backward through a retained graph raises.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Tuple
 
 import torch
 
+from cleanmarl_tpu_torch.core import tracing
 from cleanmarl_tpu_torch.ops import _build
 
 LAUNCHES = {"gru_seq_fwd": 0, "gru_seq_fwd_l2": 0, "gru_seq_bwd": 0, "gru_seq_bwd_l2": 0,
@@ -114,11 +121,13 @@ def _h_prev(h0, h_seq, keep):
     return torch.cat([h0[None], keep[:-1, :, None] * h_seq[:-1]], dim=0)
 
 
-def gru_seq_bwd_plain(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal):
-    """→ (dgi (T, M, 3H), dghn (T, M, H), dh0 (M, H))."""
+def gru_seq_bwd_plain(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal, dgi=None):
+    """→ (dgi (T, M, 3H), dghn (T, M, H), dh0 (M, H)); dgi is written into
+    the given buffer, which may be gi (step t reads gi[t] before it writes
+    dgi[t]), or a fresh one."""
     T, H = gi.shape[0], h0.shape[-1]
     h_prev = _h_prev(h0, h_seq, keep)
-    dgi = torch.empty_like(gi)
+    dgi = torch.empty_like(gi) if dgi is None else dgi
     dghn = torch.empty_like(h_seq)
     dh = g_hfinal
     for t in range(T - 1, -1, -1):
@@ -221,16 +230,18 @@ def gru_seq_fwd(wh, bh, h0, gi, keep) -> Tuple[torch.Tensor, torch.Tensor]:
     return h_final, h_seq
 
 
-def gru_seq_bwd(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal):
-    """→ (dgi (T, M, 3H), dghn (T, M, H), dh0 (M, H))."""
+def gru_seq_bwd(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal, dgi=None):
+    """→ (dgi (T, M, 3H), dghn (T, M, H), dh0 (M, H)); dgi is written into
+    the given buffer, which may be gi itself, or a fresh one."""
     if _on_cpu("gru_seq_bwd", gi):
-        return gru_seq_bwd_plain(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal)
+        return gru_seq_bwd_plain(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal, dgi)
     T, M, H = _dims(wh.shape[0], gi)
+    dgi = torch.empty_like(gi) if dgi is None else dgi
     _check("gru_seq_bwd", dict(
         wh=(wh, (H, 3 * H)), bh=(bh, (3 * H,)), h0=(h0, (M, H)),
         h_seq=(h_seq, (T, M, H)), gi=(gi, (T, M, 3 * H)), keep=(keep, (T, M)),
-        g_hseq=(g_hseq, (T, M, H)), g_hfinal=(g_hfinal, (M, H))), gi)
-    dgi = torch.empty_like(gi)
+        g_hseq=(g_hseq, (T, M, H)), g_hfinal=(g_hfinal, (M, H)),
+        dgi=(dgi, (T, M, 3 * H))), gi)
     dghn = torch.empty_like(h_seq)
     dh0 = torch.empty_like(h0)
     lib = _build.load("gru_seq_bwd")
@@ -283,13 +294,18 @@ def gru_seq_dw(h0, h_seq, keep, dgi, dghn) -> Tuple[torch.Tensor, torch.Tensor]:
 class GruSeq(torch.autograd.Function):
     """Fused GRU over time with the hand-written backward. Saves the
     residuals of ``_gru_seq_fwd`` (wh, bh, h0, gi, keep, h_seq), returns a
-    zero gradient for ``keep`` and treats a missing cotangent as zeros."""
+    zero gradient for ``keep`` and treats a missing cotangent as zeros.
+    With ``consume_gi`` the backward writes dgi over the saved gi and
+    bumps gi's version. Counters ``gru.bwd_calls`` and
+    ``gru.bwd_in_place`` (``core/tracing.py``) count the backward's calls
+    and those that wrote over gi."""
 
     @staticmethod
-    def forward(ctx, wh, bh, h0, gi, keep):
+    def forward(ctx, wh, bh, h0, gi, keep, consume_gi):
         wh, bh, h0, gi, keep = (x.contiguous() for x in (wh, bh, h0, gi, keep))
         h_final, h_seq = gru_seq_fwd(wh, bh, h0, gi, keep)
         ctx.save_for_backward(wh, bh, h0, gi, keep, h_seq)
+        ctx.consume_gi = consume_gi
         return h_final, h_seq
 
     @staticmethod
@@ -299,11 +315,18 @@ class GruSeq(torch.autograd.Function):
                     else g_hfinal.contiguous())
         g_hseq = (torch.zeros_like(h_seq) if g_hseq is None
                   else g_hseq.contiguous())
-        dgi, dghn, dh0 = gru_seq_bwd(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal)
+        dgi, dghn, dh0 = gru_seq_bwd(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal,
+                                     dgi=gi if ctx.consume_gi else None)
+        if ctx.consume_gi:
+            torch.autograd.graph.increment_version(gi)
+        tracing.count("gru.bwd_calls", 1)
+        tracing.count("gru.bwd_in_place", int(ctx.consume_gi))
         dwh, dbh = gru_seq_dw(h0, h_seq, keep, dgi, dghn)
-        return dwh, dbh, dh0, dgi, torch.zeros_like(keep)
+        return dwh, dbh, dh0, dgi, torch.zeros_like(keep), None
 
 
-def gru_seq(wh, bh, h0, gi, keep):
-    """→ (h_final (M, H), h_seq (T, M, H)), differentiable."""
-    return GruSeq.apply(wh, bh, h0, gi, keep)
+def gru_seq(wh, bh, h0, gi, keep, consume_gi: bool = False):
+    """→ (h_final (M, H), h_seq (T, M, H)), differentiable. ``consume_gi``:
+    the backward writes gi's gradient over gi, which only a caller that
+    owns gi and reads it no more may ask for; gi is left intact otherwise."""
+    return GruSeq.apply(wh, bh, h0, gi, keep, consume_gi)

@@ -159,6 +159,137 @@ def test_gru_backward_matches_autograd_of_plain_forward(T, M, H):
     assert torch.count_nonzero(got[4]) == 0
 
 
+def _rnn_seq_grads(T, B, n, H, p_end, seed, consume, remat=False):
+    """Every parameter's and h0's gradient of fc1→GRU→head through
+    ``rnn_seq_apply(impl="kernel")`` (the plain versions on the CPU), the
+    GRU's backward writing dgi over gi as the network asks (``consume``)
+    or into a buffer of its own; with ``remat`` under the non-reentrant
+    checkpoint that ``remat_actor`` puts around the actor. → (grads, the
+    counters of the one backward)."""
+    from cleanmarl_tpu_torch.core import networks as nets
+    from cleanmarl_tpu_torch.core import tracing
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+
+    g = torch.Generator().manual_seed(seed)
+    params = nets.rnn_init(g, 11, H, 5, final_gain=0.01)
+    obs = torch.randn(T, B, n, 11, generator=g)
+    h0 = 0.5 * torch.randn(B, n, H, generator=g)
+    ended = torch.rand(T, B, generator=g) < p_end
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    hx = h0.clone().requires_grad_(True)
+
+    def apply(hx, *leaves):
+        return nets.rnn_seq_apply(tree_unflatten(params, list(leaves)), hx, obs,
+                                  reset_seq=ended, impl="kernel")
+
+    gru_seq = gru_kernel.gru_seq
+
+    def owned_elsewhere(*args, consume_gi=False):
+        return gru_seq(*args, consume_gi=False)
+
+    with pytest.MonkeyPatch.context() as mp:
+        if not consume:
+            mp.setattr(gru_kernel, "gru_seq", owned_elsewhere)
+        with tracing.recording() as rec:
+            if remat:
+                hf, out = torch.utils.checkpoint.checkpoint(apply, hx, *leaves,
+                                                            use_reentrant=False)
+            else:
+                hf, out = apply(hx, *leaves)
+            grads = torch.autograd.grad((out * out).sum() + hf.sum(), leaves + [hx])
+    return grads, rec.counter_values()
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("T,B,n,H,p_end", [(6, 4, 3, 8, 0.3), (9, 5, 3, 16, 0.2),
+                                           (1, 3, 1, 8, 0.0), (7, 7, 5, 16, 0.5)])
+def test_consuming_gi_gives_the_same_gradients_bitwise(T, B, n, H, p_end, remat):
+    """The network's GRU backward writes dgi over its own gi: every
+    parameter's and h0's gradient is bitwise that of the route that keeps
+    gi, with resets, at ragged row counts (M = 15, 35) and at H = 8 and 16,
+    with and without the actor's checkpoint, and the one backward read
+    as in place."""
+    got, counts = _rnn_seq_grads(T, B, n, H, p_end, seed=T * B + H, consume=True,
+                                 remat=remat)
+    want, counts_kept = _rnn_seq_grads(T, B, n, H, p_end, seed=T * B + H,
+                                       consume=False, remat=remat)
+    assert counts == {"gru.bwd_calls": 1, "gru.bwd_in_place": 1}
+    assert counts_kept == {"gru.bwd_calls": 1, "gru.bwd_in_place": 0}
+    assert len(got) == len(want) == 9
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_gru_backward_counters_read_engagement():
+    """In one recording, a direct ``gru_seq`` backward counts one call and
+    none in place (the network's counts one and one, above); nothing is
+    counted with no recording open."""
+    from cleanmarl_tpu_torch.core import tracing
+
+    ins = [x.requires_grad_(True) for x in _gru_inputs(5, 6, 8, seed=2)]
+    with tracing.recording() as rec:
+        _, hs = gru_kernel.gru_seq(*ins)
+        hs.sum().backward()
+    assert rec.counter_values() == {"gru.bwd_calls": 1, "gru.bwd_in_place": 0}
+    _, hs = gru_kernel.gru_seq(*ins)
+    hs.sum().backward()
+    assert rec.counter_values() == {"gru.bwd_calls": 1, "gru.bwd_in_place": 0}
+
+
+@pytest.mark.parametrize("which", ["gru_seq_leaf_gi", "gru_seq_bwd"])
+def test_public_gru_calls_leave_gi_intact(which):
+    """The public ``gru_seq`` (with a leaf gi that needs its gradient) and
+    ``gru_seq_bwd`` without an output buffer leave every input bitwise as
+    it was."""
+    ins = [x.requires_grad_(True) for x in _gru_inputs(6, 5, 8, seed=3)]
+    before = [x.detach().clone() for x in ins]
+    _, hs = gru_kernel.gru_seq(*ins)
+    g = torch.randn_like(hs)
+    if which == "gru_seq_leaf_gi":
+        (hs * g).sum().backward()
+        assert not torch.equal(ins[3].grad, ins[3].detach())
+    else:
+        args = [x.detach() for x in ins[:3]] + [hs.detach()] + [x.detach() for x in ins[3:]]
+        before += [hs.detach().clone()]
+        dgi, _, _ = gru_kernel.gru_seq_bwd(*args, g, torch.zeros_like(ins[2]))
+        assert dgi.data_ptr() != ins[3].data_ptr()
+        ins = ins + [hs]
+    for a, b in zip(ins, before):
+        assert torch.equal(a.detach(), b)
+
+
+def _written_as_the_kernel_writes(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal, dgi=None):
+    """The plain backward, its dgi stored into the buffer behind autograd's
+    back, as the CUDA kernel stores it: the buffer's version stays."""
+    got = gru_kernel.gru_seq_bwd_plain(wh, bh, h0, h_seq, gi, keep, g_hseq, g_hfinal)
+    if dgi is None:
+        return got
+    dgi.data.copy_(got[0])
+    return (dgi,) + got[1:]
+
+
+@pytest.mark.parametrize("write", ["plain", "as_the_kernel"])
+def test_second_backward_through_consumed_gi_raises(write, monkeypatch):
+    """After the backward wrote over gi, a second backward through a
+    retained graph refuses with autograd's in-place error instead of
+    reading the gradient as gi, also where the write itself bumped no
+    version (the kernel's)."""
+    if write == "as_the_kernel":
+        monkeypatch.setattr(gru_kernel, "gru_seq_bwd", _written_as_the_kernel_writes)
+    from cleanmarl_tpu_torch.core import networks as nets
+
+    g = torch.Generator().manual_seed(0)
+    params = nets.rnn_init(g, 7, 8, 3, device="cpu")
+    for p in (params["fc1"]["w"], params["gru"]["wh"]):
+        p.requires_grad_(True)
+    obs = torch.randn(4, 3, 2, 7, generator=g)
+    hf, out = nets.rnn_seq_apply(params, torch.zeros(3, 2, 8), obs, impl="kernel")
+    loss = (out * out).sum() + hf.sum()
+    torch.autograd.grad(loss, [params["fc1"]["w"], params["gru"]["wh"]], retain_graph=True)
+    with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+        torch.autograd.grad(loss, [params["fc1"]["w"], params["gru"]["wh"]])
+
+
 def test_kernel_supports_and_backward_route_by_width():
     for h in (4, 8, 100, 128, 256, 512):
         assert gru_kernel.kernel_supports(h)
@@ -420,6 +551,74 @@ def test_gru_kernels_match_plain_on_card(T, M, H):
     for a, b in zip(dw, dw2):
         torch.testing.assert_close(a, b, atol=GRAD_TOL, rtol=1e-4)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,M,H", [(60, 3072, 128), (60, 13824, 128), (9, 37, 32),
+                                   (13, 77, 256)])
+def test_gru_seq_bwd_writing_dgi_over_gi_is_bitwise_on_card(T, M, H):
+    """K3 (and at H = 256 its L2 route) launched with dgi on gi's storage
+    gives bitwise the out-of-place dgi, dghn and dh0, and dw over them
+    bitwise the same dwh and dbh: at the 3m and 27m_vs_30m updates'
+    shapes, a ragged tensor-core one and an L2 one."""
+    _card()
+    wh, bh, h0, gi, keep = _gru_inputs(T, M, H, seed=T + H, device="cuda")
+    _, hs = gru_kernel.gru_seq_fwd(wh, bh, h0, gi, keep)
+    g, gf = torch.randn_like(hs), torch.randn_like(h0)
+    want = gru_kernel.gru_seq_bwd(wh, bh, h0, hs, gi, keep, g, gf)
+    want += gru_kernel.gru_seq_dw(h0, hs, keep, want[0], want[1])
+    buf = gi.clone()
+    got = gru_kernel.gru_seq_bwd(wh, bh, h0, hs, buf, keep, g, gf, dgi=buf)
+    assert got[0].data_ptr() == buf.data_ptr()
+    got += gru_kernel.gru_seq_dw(h0, hs, keep, got[0], got[1])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_consuming_gi_cuts_the_backward_peak_by_gi_on_card():
+    """One ``rnn_seq_apply(impl="kernel")`` at the 27m_vs_30m update's
+    shape (T=60, 512 envs x 27 agents, H=128, obs 312): the backward's own
+    peak (stats reset after the forward) falls by gi's bytes,
+    1,274,019,840, against the route that keeps gi, up to the caching
+    allocator's rounding of a block that large to 2 MiB (1,275,068,416).
+    One backward runs first: the first on autograd's thread allocates
+    that thread's cuBLAS workspace (32 MiB on this card)."""
+    _card()
+    from cleanmarl_tpu_torch.core import networks as nets
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+
+    T, B, n, H = 60, 512, 27, 128
+    g = torch.Generator("cuda").manual_seed(0)
+    params = nets.rnn_init(g, 312, H, 36, final_gain=0.01, device="cuda")
+    obs = torch.randn(T, B, n, 312, generator=g, device="cuda")
+    h0 = torch.zeros(B, n, H, device="cuda")
+    gru_seq = gru_kernel.gru_seq
+
+    def backward_peak(consume):
+        torch.cuda.empty_cache()
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with pytest.MonkeyPatch.context() as mp:
+            if not consume:
+                mp.setattr(gru_kernel, "gru_seq",
+                           lambda *a, consume_gi=False: gru_seq(*a, consume_gi=False))
+            hf, out = nets.rnn_seq_apply(tree_unflatten(params, leaves), h0, obs,
+                                         impl="kernel")
+            loss = out.square().sum() + hf.sum()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        del hf, out, loss, grads, leaves
+        return peak
+
+    gi_bytes = T * B * n * 3 * H * 4
+    assert gi_bytes == 1_274_019_840
+    backward_peak(True)
+    kept, consumed = backward_peak(False), backward_peak(True)
+    assert gi_bytes <= kept - consumed <= -(-gi_bytes // 2**21) * 2**21, (kept, consumed)
 
 
 @pytest.mark.cuda

@@ -259,15 +259,15 @@ def test_kernel_route_gets_contiguous_inputs(monkeypatch):
     h0 and keep (the sampled batch is made time-major and contiguous once),
     so ``GruSeq.forward`` copies nothing. Two calls per update: the target
     stream's and the online stream's (whose backward reuses its saved
-    inputs)."""
+    inputs and writes gi's gradient over gi, the network's own)."""
     from cleanmarl_tpu_torch.ops import gru_kernel
 
     seen = []
     real = gru_kernel.gru_seq
 
-    def spy(wh, bh, h0, gi, keep):
-        seen.append(all(x.is_contiguous() for x in (wh, bh, h0, gi, keep)))
-        return real(wh, bh, h0, gi, keep)
+    def spy(wh, bh, h0, gi, keep, consume_gi=False):
+        seen.append((all(x.is_contiguous() for x in (wh, bh, h0, gi, keep)), consume_gi))
+        return real(wh, bh, h0, gi, keep, consume_gi=consume_gi)
     monkeypatch.setattr(gru_kernel, "gru_seq", spy)
     env = treg.make("smaclite", "3m", agent_ids=True, device="cpu")
     cfg = recurrent_q.RecurrentQConfig(env_type="smaclite", env_name="3m", mixing="qmix",
@@ -278,7 +278,7 @@ def test_kernel_route_gets_contiguous_inputs(monkeypatch):
     batch = to_torch_batch(make_batch(np.random.RandomState(0), env, T))
     mask = torch.ones(B, T)
     meta["update"](runner.params, runner.target_params, runner.opt_state, batch, mask)
-    assert seen == [True, True]
+    assert seen == [(True, True), (True, True)]
 
 
 # ---------------------------------------------------------------------------
