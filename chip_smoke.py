@@ -4,7 +4,11 @@ NVIDIA GPU, from the sources in this checkout.
 
     python3 chip_smoke.py [--out results.json]
 
-Phases, each of which must pass:
+Phases, each of which must pass. The script checks; it does not
+measure the program: block rates, phase times, device busy shares and
+peak memory come from the benchmark (``python3 benchmark/run.py``;
+``PERF_LEDGER.jsonl``). Phase 2 alone times each kernel by itself at the
+shapes the paths launch, beside its plain version and bound.
 
 1. print the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and build every CUDA kernel from ``csrc/`` (one
@@ -15,48 +19,43 @@ Phases, each of which must pass:
    shapes (rows that cut the kernels' tiles and slabs), every width of
    both routes of the forward and the backward, and the main path's
    shapes; check that the forward and the weight gradient are bitwise the
-   same on two launches, and report both against float64; time kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call (a yardstick only: the port never calls it); time the card's
-   TF32 ``mma.sync`` peak (``csrc/mma_rate.cu``), the tensor-core kernels'
-   ceiling. The λ-return kernel is also held at inputs broadcast over the
-   agents (read without a copy), T = 1 and T = 257, and timed by its device
-   time alone: CUDA graphs of its launches replayed between CUDA events,
-   cold (each launch after an L2 flush, the flushes' own time subtracted)
-   and warm (back to back), beside the kernel it replaced, one copy of as
-   many bytes, and the wrapper's host time per call;
+   same on two launches, and report both against float64; at the shapes
+   the paths launch, time kernel, plain version and, where one PyTorch
+   call computes the same function, that call (a yardstick only: the port
+   never calls it), beside the least time of ``benchmark/yardstick.py``.
+   The λ-return kernel is also held at inputs broadcast over the agents
+   (read without a copy), T = 1 and T = 257, and timed by its device time
+   alone: CUDA graphs of its launches replayed between CUDA events, cold
+   (each launch after an L2 flush, the flushes' own time subtracted) and
+   warm (back to back), beside one copy of as many bytes and the
+   wrapper's host time per call;
 3. check one PPO update of the port on the card against the same update
    on the CPU (plain versions) on a small input, then drive the main
    path: recurrent MAPPO on SMAClite 3m at the bench settings (GRU
    actor and critic of width 128, 8192 envs, rollouts of 60 steps, 8
-   epochs x 8 minibatches), one warm-up ``train_block``, two timed ones
-   and one ``eval_fn``, with every kernel's launch count set to 0 just
-   before and read just after; then time the rollout and the update
-   alone, and read the update's device busy share (one update timed
-   without the profiler, one profiled for its kernels' device time, the
-   λ-return kernel's among them);
+   epochs x 8 minibatches), one warm-up ``train_block``, two more and one
+   ``eval_fn``, with every kernel's launch count set to 0 just before and
+   read just after: finite metrics, every kernel of the path launched;
 4. run the CLIs (``python -m cleanmarl_tpu_torch.algos.mappo``,
    ``...algos.qmix`` on MPE simple_spread and ``...algos.qmix_rnn`` on
    SMAClite 3m) for one short block each, as subprocesses;
 5. the off-policy slice, which launches no kernel: one QMIX and one VDN
    update on the card against the same update on the CPU, then QMIX and
    VDN on MPE simple_spread at the JAX package's validated recipes
-   (qmix_spread, vdn_spread: 32 envs, hidden 64), warm-up and timed
+   (qmix_spread, vdn_spread: 32 envs, hidden 64), warm-up and driven
    ``train_block``s and one ``eval_fn`` each, with the kernel counts set
-   to 0 before and read after; each prints env-steps/s, updates per block,
-   one update's wall time, peak memory, that the update count equals the
-   episode (QMIX) or iteration (VDN) clock, and the device busy share of
-   one block (its device time under ``torch.profiler`` against an
-   unprofiled block with as many updates);
+   to 0 before and read after: finite metrics, updates in the driven
+   blocks, and the update count equal to the episode (QMIX) or iteration
+   (VDN) clock;
 6. recurrent QMIX and VDN on SMAClite 3m, whose update runs K2, K3 and dw
    at new shapes (phase 2 also holds and times them there: 32 episodes x
    3 agents at H=64 over T=150, and T=2 after a burn-in of 8, against the
    scan route and cuDNN's GRU): one update of each of ``qmix_rnn_3m``,
    ``vdn_rnn_3m`` and ``vdn_rnn_seq_3m`` on the card against the CPU, then
    ``qmix_rnn_3m`` (episode replay) and ``vdn_rnn_seq_3m`` (sequence
-   replay) at the JAX package's recipes, with the measures of phase 5, the
-   update count against the episode or iteration clock, and the kernel
-   counts (K2, K3 and dw launched; the L2 routes and K1 not);
+   replay) driven at the JAX package's recipes, with the checks of phase
+   5, the update count against the episode or iteration clock, and the
+   kernel counts (K2, K3 and dw launched; the L2 routes and K1 not);
 7. MADDPG, FACMAC and COMA, whose updates run K1 at COMA's shape and K2,
    K3 and dw on the recurrent actors (phase 2 also holds and times K1
    over one ``coma_3m`` rollout's reward and end flags broadcast over 3
@@ -65,8 +64,8 @@ Phases, each of which must pass:
    ``maddpg`` and ``coma`` CLIs): one update of each of ``maddpg_sl``,
    ``maddpg_rnn_sl``, ``facmac_sl``, ``coma_3m`` and a recurrent
    ``coma_3m`` on the card against the CPU, then each driven at its
-   recipe's widths (COMA two rollouts a block) with the measures of
-   phase 5, the update clock (one update per completed episode, or per
+   recipe's widths (COMA two rollouts a block) with the checks of phase
+   5, the update clock (one update per completed episode, or per
    rollout), and every kernel's launches equal to its launches per update
    times the updates;
 8. IPPO, pursuit and LBF, the host-env route and SMAClite collisions
@@ -74,9 +73,8 @@ Phases, each of which must pass:
    T=100 over 64 envs x 8 pursuers, and LBF, T=150 over 64 x 2, with the
    team reward and flag broadcast, and at COMA's on LBF with per-agent
    rewards, and K2/K3/dw at T=150, M=128 with resets and a carried h0;
-   phase 4 also runs the recurrent ``ippo`` CLI on LBF): one pursuit and
-   one LBF ``VecEnv.step`` of 64 envs profiled for their device ops; one
-   update of each of ``ippo_pursuit``, ``ippo_lbf``, ``ippo_rnn_lbf``,
+   phase 4 also runs the recurrent ``ippo`` CLI on LBF): one update of
+   each of ``ippo_pursuit``, ``ippo_lbf``, ``ippo_rnn_lbf``,
    ``coma_lbf``, ``coma_rnn_lbf`` and ``vdn_pursuit`` on the card against
    the CPU; ``ippo_pursuit``, ``ippo_rnn_lbf`` and ``coma_rnn_lbf`` driven
    as in phase 7 (launches per update call, IPPO's per rollout) and
@@ -92,18 +90,17 @@ Phases, each of which must pass:
    per-env resets): recurrent MAPPO at the
    main path's widths trains one block, saves, restores into an init of
    another seed, and one more block from both must give the same bits in
-   every param, optimizer moment, env state, generator state and counter
-   (the checkpoint's size, save and restore times printed); two gloo
-   ranks on the one card, 4096 envs each, hold one Adam step over a
-   fixed trajectory (split by the interleave) against the
+   every param, optimizer moment, env state, generator state and counter;
+   two gloo ranks on the one card, 4096 envs each, hold one Adam step over
+   a fixed trajectory (split by the interleave) against the
    single-process step on the scan and the kernel route (params and
    metrics to ``PPO_TOL``, gradients to ``DP_GRAD_TOL``) and the main
    path's 64-step update's metrics, then drive three blocks each: params
-   bitwise identical across ranks, K1, K2, K3 and dw launched on every
-   rank (``mappo_dp`` in ``launches_by_path``), global env-steps/s and
-   the all-reduce's ms per update; a 2-process MAPPO CLI cluster saves
-   and a resumed one prints ``resumed from step N`` on rank 0 only and
-   ends at its total; a ``--profile_dir`` run leaves a trace.
+   bitwise identical across ranks, finite metrics, K1, K2, K3 and dw
+   launched on every rank (``mappo_dp`` in ``launches_by_path``); a
+   2-process MAPPO CLI cluster saves and a resumed one prints ``resumed
+   from step N`` on rank 0 only and ends at its total; a ``--profile_dir``
+   run leaves a trace.
 10. Data-parallel QMIX, VDN, recurrent Q, MADDPG and FACMAC over two
    gloo ranks on the one card (``distributed/dp.py``: rings sharded by
    capacity; phase 2 also holds and times K2, K3 and dw at a rank's
@@ -112,13 +109,12 @@ Phases, each of which must pass:
    the single-process ring, scratch row aside; one ``qmix_rnn_3m`` and
    one ``maddpg_rnn_sl`` update split over the ranks against the
    single-process one (phase 9's one-step tolerances); ``qmix_rnn_3m``
-   driven at full width on 2 ranks (env-steps/s against phase 6's single
-   process, ring and peak memory per rank, updates and collectives per
-   block, K2/K3/dw launches per update on each rank, params bitwise
-   identical); one 2-rank block of ``qmix_spread``, ``vdn_spread``,
-   ``vdn_rnn_seq_3m``, ``maddpg_rnn_sl`` and ``facmac_3m``; a 2-process
-   QMIX CLI cluster that saves and resumes; and a ``qmix_rnn_3m`` resume
-   in one process, bitwise but for the ring's scratch row.
+   driven at full width on 2 ranks (three blocks: updates, K2/K3/dw
+   launches on each rank, params bitwise identical); one 2-rank block of
+   ``qmix_spread``, ``vdn_spread``, ``vdn_rnn_seq_3m``, ``maddpg_rnn_sl``
+   and ``facmac_3m``; a 2-process QMIX CLI cluster that saves and
+   resumes; and a ``qmix_rnn_3m`` resume in one process, bitwise but for
+   the ring's scratch row.
 11. The validation runner (``cleanmarl_tpu_torch/validate.py``; phase 2
    also holds and times K1 at ``mappo_27m30m_paper``'s update, T=60 over
    512 envs x 27 agents, and K2, K3 and dw at its one minibatch, T=60,
@@ -127,38 +123,35 @@ Phases, each of which must pass:
    SMAClite maps up to 27m_vs_30m, the MAPPO-paper flags together, QMIX-RNN
    on 5m_vs_6m, MPE's referential game, the store-once QMIX ring) through
    ``validate.run_config`` at full width, its budget one block's steps:
-   finite results, the recipe's eval metric, env-steps/s, peak memory and
-   each kernel of the recipe's path launched (``validate`` in
-   ``launches_by_path``: the ten runs' sum).
+   finite results, the recipe's eval metric and each kernel of the
+   recipe's path launched (``validate`` in ``launches_by_path``: the ten
+   runs' sum).
 12. Restore at another world size (``core/checkpoint.py``,
    ``dp.unshard_runners``): the main path's MAPPO (8192 envs, GRU 128)
    and ``qmix_rnn_3m`` (ring cut to 500 episodes, after updates have
    started) saved by two gloo ranks and restored in this process at 1
    (each rank's file bitwise its share of the restored runner, their
    partial sums adding up to its own), one driven block from it (K1, K2,
-   K3 and dw at T=60, M=3072; K2, K3 and dw at T=150, M=96) and one more
-   timed alone, saved and restored by two ranks (each rank's restored
-   runner bitwise its share of the runner saved, rank 1's generator the
-   rule's new stream, the two streams different; shares cut by this
-   script's own index arithmetic, not by the ``dp`` code under test), two
-   blocks on each (M=1536; M=48), params bitwise identical across the
-   ranks; sizes, save and restore seconds beside the same-world restores
-   of phases 9 and 10, and both blocks' env-steps/s (``*_resume_2to1``
-   and ``*_resume_1to2`` in ``launches_by_path``: the first block's).
+   K3 and dw at T=60, M=3072; K2, K3 and dw at T=150, M=96), saved and
+   restored by two ranks (each rank's restored runner bitwise its share
+   of the runner saved, rank 1's generator the rule's new stream, the two
+   streams different; shares cut by this script's own index arithmetic,
+   not by the ``dp`` code under test), one block on each (M=1536; M=48),
+   params bitwise identical across the ranks (``*_resume_2to1`` and
+   ``*_resume_1to2`` in ``launches_by_path``).
 13. Every optax optimizer the JAX package trains with
    (``core/optim.py``, ``core/optim_transforms.py``; no kernel of its
    own): (a) each name's 3 updates, clip and LR anneal on where optax
    allows them, on the card against the CPU (params and state) on a tree
    with a 128 x 384 leaf that Adafactor factors, ``noisy_sgd`` by its
    noise's variance and the same noise for the same count; (b) each
-   name's MAPPO update at the main path's width (the median of three
-   rounds, every name in turn) and its ratio to Adam's, and one optimizer
-   step alone with its device ops and device ms; (c) the main path and ``qmix_rnn_3m`` driven with ``rmsprop``
-   (one update each card vs CPU, a warm-up and a timed block, env-steps/s
-   beside the same drive with Adam right after it, K1/K2/K3/dw counts
-   equal to their launches per update: ``mappo_rmsprop`` and
-   ``qmix_rnn_3m_rmsprop`` in ``launches_by_path``); (d) a bitwise
-   ``rmsprop`` resume of the main path.
+   name's MAPPO update at the main path's width: finite metrics and 64
+   optimizer steps; (c) the main path and ``qmix_rnn_3m`` driven with
+   ``rmsprop`` and then with Adam (one update each card vs CPU, a warm-up
+   and a driven block, K1/K2/K3/dw counts equal to their launches per
+   update: ``mappo_rmsprop`` and ``qmix_rnn_3m_rmsprop`` in
+   ``launches_by_path``); (d) a bitwise ``rmsprop`` resume of the main
+   path.
 
 ``--dp_ranks N`` (N cards) builds the kernels and runs only phase 10's
 rank checks over N ranks (nccl with a card each) and recurrent QMIX and
@@ -180,12 +173,10 @@ import subprocess
 import sys
 import time
 
+from benchmark.yardstick import PEAK_BYTES_PER_S, gru_least_s, returns_bytes, returns_least_s
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data-sheet peaks (dense), at the full 700 W limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12          # float32 FMA outside the tensor cores
-PEAK_TF32_FLOPS = 495e12        # tensor cores; float32 accuracy takes 3 TF32 products
 L2_FLUSH_BYTES = 128 * 2**20    # written between cold launches: 2.5x the 50 MB L2
 
 # main path: the bench configuration of the JAX package
@@ -301,12 +292,6 @@ def host_ms(fn, iters: int = 200) -> float:
     return t / iters * 1e3
 
 
-def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = PEAK_F32_FLOPS):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def max_err(got, want) -> float:
     return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                for a, b in zip(got, want))
@@ -377,44 +362,13 @@ def _returns_inputs(T, E, n, p_end, shared_r, shared_v, seed):
     return r, e, v, b
 
 
-def returns_bytes(T, B, Rr, Rv, Re=None) -> int:
-    """Bytes the λ-return function needs: G and A written (T, B), V read
-    at (T, B / Rv), r (4 B) at (T, B / Rr), e (1 B) at (T, B / Re) (Re
-    defaults to Rr), the bootstrap (B / Rv)."""
-    Re = Rr if Re is None else Re
-    return T * B * 8 + T * (B // Rv) * 4 + T * (B // Rr) * 4 + T * (B // Re) + (B // Rv) * 4
-
-
-def _column_launch(r, e, v, b):
-    """A launch of the yardstick kernel of csrc/lambda_returns.cu (one
-    thread per column, the loop over T in the thread, full (T, B) inputs:
-    the design the port's kernel replaced; the port never calls it)."""
-    import ctypes
-    import torch
-    from cleanmarl_tpu_torch.ops import _build
-
-    lib = _build.load("lambda_returns")
-    fn = lib.lambda_returns_column_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-                                           ctypes.c_float, ctypes.c_void_p]
-    r, e, v, b = (x.contiguous() for x in (r, e, v, b))
-    g, a = torch.empty_like(v), torch.empty_like(v)
-    T, p = v.shape[0], _build.ptr
-
-    def launch():
-        _build.check(lib, "lambda_returns", fn(
-            p(r), p(e), p(v), p(b), p(g), p(a), T, v.numel() // T, 0.99, 0.95,
-            _build.stream_ptr(v.device)))
-    return launch, (g, a)
-
-
 def check_returns(results):
     """K1 against its plain version at every case of RETURNS_CASES (shared
     inputs must reach the kernel without a copy), two launches bitwise
     equal, then its device time at the main path's inputs: cold (L2
-    flushed) and warm, from CUDA graphs, beside the column kernel it
-    replaced, the same kernel on materialised (R = 1) inputs, one copy of
-    as many bytes, the wrapper's host time and the plain version."""
+    flushed) and warm, from CUDA graphs, beside the yardstick's least time
+    (bytes), one copy of as many bytes, the wrapper's host time and the
+    plain version."""
     import torch
     from cleanmarl_tpu_torch.ops import returns_kernel as rk
 
@@ -445,36 +399,27 @@ def check_returns(results):
     if not all(torch.equal(x, y) for x, y in zip(first, second)):
         fail("lambda_returns differs between two launches on the same inputs")
 
-    T, B = v.shape[0], v[0].numel()
-    n_bytes = returns_bytes(T, B, RETURNS_MAIN[2], RETURNS_MAIN[2])
-    bnd, by = bound_ms(n_bytes, 8 * T * B)
+    T, B, R = v.shape[0], v[0].numel(), RETURNS_MAIN[2]
+    n_bytes = returns_bytes(T, B, R, R)
+    bnd = returns_least_s(T, B, R, R) * 1e3
     ms, warm = device_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95))
-    full = [x.contiguous() for x in (r, e, v, b)]
-    r1_ms, r1_warm = device_ms(lambda: rk.lambda_returns_kernel(*full, 0.99, 0.95))
-    col_launch, col_out = _column_launch(r, e, v, b)
-    col_launch()
-    col_err = max_err(col_out, first)
-    col_ms, col_warm = device_ms(col_launch)
     host = host_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, 0.95))
     plain = time_ms(lambda: rk.lambda_returns_plain(r, e, v, b, 0.99, 0.95), 10)
     src = torch.empty(n_bytes // 8, device="cuda")
     dst = torch.empty_like(src)
     copy_ms, copy_warm = device_ms(lambda: dst.copy_(src))
     log("[kernels] lambda_returns: two launches bitwise equal; at the main path's inputs "
-        f"(T={T}, B={B}, reward, flag and value per env, R=3): {n_bytes} B, bound "
-        f"{bnd:.5f} ms ({by}); device ms cold/warm: kernel {ms:.5f}/{warm:.5f} "
-        f"({bnd / ms:.1%} of the bound cold), kernel on materialised inputs (R=1) "
-        f"{r1_ms:.5f}/{r1_warm:.5f}, column kernel it replaced (R=1) {col_ms:.5f}/"
-        f"{col_warm:.5f} (max |diff| {col_err:.1e}), one copy of {n_bytes} B "
+        f"(T={T}, B={B}, reward, flag and value per env, R={R}): {n_bytes} B, bound "
+        f"{bnd:.5f} ms (bytes); device ms cold/warm: kernel {ms:.5f}/{warm:.5f} "
+        f"({bnd / ms:.1%} of the bound cold), one copy of {n_bytes} B "
         f"{copy_ms:.5f}/{copy_warm:.5f}; wrapper host {host:.5f} ms per call; "
         f"plain {plain:.4f} ms")
     results["lambda_returns"] = dict(
         source="cleanmarl_tpu_torch/csrc/lambda_returns.cu",
         replaces="cleanmarl_tpu/ops/pallas_returns.py:35",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bnd,
         library_ms=None, warm_ms=warm, host_ms=host, copy_ms=copy_ms,
-        copy_warm_ms=copy_warm, materialised_ms=r1_ms, materialised_warm_ms=r1_warm,
-        column_kernel_ms=col_ms, column_kernel_warm_ms=col_warm, bytes=n_bytes)
+        copy_warm_ms=copy_warm, bytes=n_bytes)
 
 
 def _gru_inputs(T, M, H, seed, keep=None):
@@ -601,29 +546,6 @@ def time_gru(T, M, H, ins, hs, rec):
     return out
 
 
-def gru_bounds(T, M, H):
-    """{kernel: {"f32": (ms, by), "tc": (ms, by)}}: the least time at the
-    data-sheet peaks, with the operations on the float32 units or, where
-    the kernel runs them there, as 3xTF32 on the tensor cores (three TF32
-    products per float32 product), against the same bytes. Bytes are what
-    the function needs: each input it reads once (the backward reads
-    h_seq[:T-1] and keep[:T-1] as h_prev, and dgi's first 2H columns), each
-    output written once."""
-    f = 4
-    flops = 2.0 * T * M * H * 3 * H
-    fwd_bytes = f * (H * 3 * H + 3 * H + M * H + T * M * 3 * H + T * M + T * M * H + M * H)
-    bwd_bytes = f * (H * 3 * H + 3 * H + M * H + (T - 1) * M * H + T * M * H
-                     + T * M * 3 * H + T * M + M * H + T * M * 3 * H + T * M * H + M * H)
-    dw_bytes = f * (M * H + (T - 1) * M * H + (T - 1) * M + T * M * 2 * H + T * M * H
-                    + H * 3 * H + 3 * H)
-    work = {"fwd": (fwd_bytes, flops, 10.0 * T * M * H),
-            "bwd": (bwd_bytes, 2 * flops, 20.0 * T * M * H),
-            "dw": (dw_bytes, flops, T * M * 3 * H)}
-    return {k: {"f32": bound_ms(b, mm + ew),
-                "tc": bound_ms(b, 3 * mm / PEAK_TF32_FLOPS * PEAK_F32_FLOPS + ew)}
-            for k, (b, mm, ew) in work.items()}
-
-
 def check_rnn_seq_apply():
     """The actor's sequence recompute at the bench minibatch (T=60, 1024
     envs x 3 agents, in=33, H=128, 9 actions): the kernel route of
@@ -734,15 +656,14 @@ def check_recurrent_q_shapes(results):
 
 
 def add_shape_rows(results, group, T, M, H, t):
-    """Add the times ``t`` of K2, K3 and dw at one shape, with their
-    bounds, µs a step and yardsticks, to ``results[name][group]``."""
+    """Add the times ``t`` of K2, K3 and dw at one shape, with their least
+    times (``gru_least_s``), µs a step and yardsticks, to
+    ``results[name][group]``."""
     rows = {"gru_seq_fwd": ("fwd", "fwd_library_ms"), "gru_seq_bwd": ("bwd", None),
             "gru_seq_dw": ("dw", "dw_library_ms")}
-    bounds = gru_bounds(T, M, H)
+    least = gru_least_s(T, M, H)
     for name, (k, lib) in rows.items():
-        b = bounds[k]["tc"]
-        entry = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[0],
-                     bound_by=b[1], bound_f32_ms=bounds[k]["f32"][0],
+        entry = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=least[k] * 1e3,
                      library_ms=t[lib] if lib else None, us_per_step=t[f"{k}_ms"] * 1e3 / T)
         if k == "bwd":
             entry.update(whole_bwd_library_ms=t["bwd_library_ms"],
@@ -756,31 +677,6 @@ def keep_max_err(results, e):
     for name, key in (("gru_seq_fwd", "fwd"), ("gru_seq_bwd", "bwd"), ("gru_seq_dw", "dw")):
         worst = max(e[key], e["grads"]) if key == "bwd" else e[key]
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
-
-
-def mma_ceiling():
-    """TFLOP/s of TF32 mma.sync m16n8k8 on 132 blocks of 8 and 16 warps
-    (csrc/mma_rate.cu): the ceiling of the tensor-core GRU kernels, which
-    issue mma.sync (the data-sheet 495 TFLOP/s takes wgmma)."""
-    import ctypes
-    import torch
-    from cleanmarl_tpu_torch.ops import _build
-
-    lib = _build.load("mma_rate")
-    fn = lib.mma_rate_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
-    blocks, iters = 132, 4000
-    out = torch.empty(blocks * 512, device="cuda")
-    rates = {}
-    for warps in (8, 16):
-        def launch():
-            _build.check(lib, "mma_rate", fn(blocks, 32 * warps, iters, _build.ptr(out),
-                                             _build.stream_ptr(out.device)))
-        ms = time_ms(launch, 3, 1)
-        rates[warps] = blocks * warps * iters * 8 * (2 * 16 * 8 * 8) / (ms * 1e-3) / 1e12
-    log("[kernels] TF32 mma.sync m16n8k8 peak: " + ", ".join(
-        f"{r:.1f} TFLOP/s at {w} warps per block" for w, r in rates.items()))
-    return rates
 
 
 def check_dw_deterministic(ins, hs, rec):
@@ -841,32 +737,32 @@ def check_gru(results):
     for T, M, H in ((7, 12, 16), (5, 3, 8), (9, 37, 128), (60, 3077, 128),
                     (7, 33, 32), (6, 50, 64), (5, 45, 96), (5, 20, 100)):
         keep_max(check_gru_shape(T, M, H, seed=H)[0], H)
-    timings = {}
-    for H in (128, 256):
-        e, ins, hs, rec = check_gru_shape(60, 3072, H, seed=H + 1)
-        keep_max(e, H)
-        if H == 128:
-            vs_f64 = check_fwd_deterministic(ins)
-            check_dw_deterministic(ins, hs, rec)
-        timings[H] = time_gru(60, 3072, H, ins, hs, rec)
+    # the L2 route at the main path's T and M: held, not timed (no path launches it)
+    keep_max(check_gru_shape(60, 3072, 256, seed=257)[0], 256)
+    e, ins, hs, rec = check_gru_shape(60, 3072, 128, seed=129)
+    keep_max(e, 128)
+    vs_f64 = check_fwd_deterministic(ins)
+    check_dw_deterministic(ins, hs, rec)
+    t = time_gru(60, 3072, 128, ins, hs, rec)
+    least = gru_least_s(60, 3072, 128)
     src = "cleanmarl_tpu_torch/csrc/"
-    rows = {"gru_seq_fwd": ("fwd", 128, "tc", "gru_seq_fwd.cu", "pallas_gru.py:67",
-                            "fwd_library_ms", errs["fwd"]),
-            "gru_seq_fwd_l2": ("fwd", 256, "f32", "gru_seq_fwd.cu", "pallas_gru.py:67",
-                               "fwd_library_ms", errs["fwd_l2"]),
-            "gru_seq_bwd": ("bwd", 128, "tc", "gru_seq_bwd.cu", "pallas_gru.py:130",
-                            None, max(errs["bwd"], errs["grads"])),
-            "gru_seq_bwd_l2": ("bwd", 256, "f32", "gru_seq_bwd.cu", "pallas_gru.py:130",
-                               None, errs["bwd_l2"]),
-            "gru_seq_dw": ("dw", 128, "tc", "gru_seq_bwd.cu", "pallas_gru.py:173",
-                           "dw_library_ms", errs["dw"])}
-    for name, (k, H, unit, f, rep, lib, err) in rows.items():
-        t, b = timings[H], gru_bounds(60, 3072, H)[k]
-        results[name] = dict(
-            source=src + f, replaces="cleanmarl_tpu/ops/" + rep, max_abs_err=err,
-            ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"], bound_ms=b[unit][0],
-            bound_by=b[unit][1], library_ms=t[lib] if lib else None,
-            bound_f32_ms=b["f32"][0], bound_tc_ms=b["tc"][0], hidden=H)
+    rows = {"gru_seq_fwd": ("fwd", "gru_seq_fwd.cu", "pallas_gru.py:67", "fwd_library_ms",
+                            errs["fwd"]),
+            "gru_seq_fwd_l2": (None, "gru_seq_fwd.cu", "pallas_gru.py:67", None,
+                               errs["fwd_l2"]),
+            "gru_seq_bwd": ("bwd", "gru_seq_bwd.cu", "pallas_gru.py:130", None,
+                            max(errs["bwd"], errs["grads"])),
+            "gru_seq_bwd_l2": (None, "gru_seq_bwd.cu", "pallas_gru.py:130", None,
+                               errs["bwd_l2"]),
+            "gru_seq_dw": ("dw", "gru_seq_bwd.cu", "pallas_gru.py:173", "dw_library_ms",
+                           errs["dw"])}
+    for name, (k, f, rep, lib, err) in rows.items():
+        results[name] = dict(source=src + f, replaces="cleanmarl_tpu/ops/" + rep,
+                             max_abs_err=err, hidden=256 if k is None else 128)
+        if k is None:
+            continue
+        results[name].update(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"],
+                             bound_ms=least[k] * 1e3, library_ms=t[lib] if lib else None)
         if k == "bwd":
             # no one call computes the recurrence alone; cuDNN's GRU backward
             # (fwd+bwd - fwd) is the yardstick of recurrence + weight gradient
@@ -874,7 +770,7 @@ def check_gru(results):
                                  whole_bwd_ms=t["bwd_ms"] + t["dw_ms"])
     results["gru_seq_fwd"].update(h_seq_err_vs_f64=vs_f64["kernel"],
                                   plain_h_seq_err_vs_f64=vs_f64["plain"])
-    return timings
+    return {128: t}
 
 
 # ---------------------------------------------------------------------------
@@ -936,61 +832,11 @@ def main_path_kernels(counters):
     return [k for table in counters for k in table if k not in skipped]
 
 
-def device_kernels(prof):
-    """{name: (device seconds, count)} of every device op that a
-    ``torch.profiler`` run recorded with device time."""
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels[e.key] = (us / 1e6, e.count)
-    return kernels
-
-
-def profile_update(meta, runner):
-    """The update layer's device busy share: one PPO update of the main path
-    timed without the profiler, then the same update under
-    ``torch.profiler`` (CUDA activity only) for the device time of every
-    kernel in it. Busy share = device time over wall time (one stream, so
-    the kernels do not overlap), against both wall times; the profiler
-    slows the host, so the unprofiled share is the one that counts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    r2, traj, h0 = meta["collect_rollout"](runner)
-    meta["ppo_update"](r2, traj, h0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    meta["ppo_update"](r2, traj, h0)
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        meta["ppo_update"](r2, traj, h0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = device_kernels(prof)
-    busy = sum(sec for sec, _ in kernels.values())
-    n_ops = sum(c for _, c in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    k1 = [(k, v) for k, v in kernels.items() if "lambda_returns" in k]
-    if not k1:
-        fail("the profiled update ran no lambda_returns kernel")
-    log(f"[main] one PPO update: device busy {busy:.4f} s, {n_ops} device ops; wall "
-        f"{wall_plain:.4f} s unprofiled ({100 * busy / wall_plain:.1f} % busy), "
-        f"{wall:.4f} s under the profiler ({100 * busy / wall:.1f} % busy)")
-    for name, (sec, n) in top + k1:
-        log(f"[main]   {sec * 1e3:9.4f} ms {n:6d}x {name[:90]}")
-    return dict(wall_s=wall_plain, wall_profiled_s=wall, device_busy_s=busy,
-                device_ops=n_ops, busy_share=busy / wall_plain,
-                busy_share_profiled=busy / wall,
-                top=[dict(name=k, s=v[0], count=v[1]) for k, v in top],
-                lambda_returns=[dict(name=k, s=v[0], count=v[1]) for k, v in k1])
-
-
 def drive_main_path(counters):
+    """The main path at the bench settings: one warm-up ``train_block``
+    (with init), two more and one ``eval_fn``, every kernel count set to 0
+    before and read after: finite metrics, every kernel of the path
+    launched."""
     import torch
     from cleanmarl_tpu_torch.algos.mappo import make_train
     from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
@@ -1000,30 +846,19 @@ def drive_main_path(counters):
     init, train_block, eval_fn, meta = make_train(cfg)
     log(f"[main] MAPPO smaclite 3m, GRU route {meta['gru_impl']!r}, "
         f"{meta['steps_per_block']} env steps per train_block")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for table in counters:
         for k in table:
             table[k] = 0
-    t0 = time.perf_counter()
     runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
     runner, metrics = train_block(runner)
     warm = to_host(metrics)
-    t1 = time.perf_counter()
-    timed = []
     for _ in range(2):
         runner, metrics = train_block(runner)
         metrics = to_host(metrics)
-        timed.append(time.perf_counter())
     evals = to_host(eval_fn(runner.actor_params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
     launches = {k: v for table in counters for k, v in table.items()}
-    peak = torch.cuda.max_memory_allocated()
-    block_s = (timed[-1] - t1) / len(timed)
-    sps = meta["steps_per_block"] / block_s
-    log(f"[main] warm-up block (incl. init) {t1 - t0:.3f} s; timed blocks "
-        f"{timed[0] - t1:.3f} s, {timed[1] - timed[0]:.3f} s; env-steps/s {sps:.1f}")
-    log(f"[main] launches {launches}; peak device memory {peak / 2**30:.3f} GiB")
+    log(f"[main] launches {launches}")
     log(f"[main] last block metrics {json.dumps(metrics, sort_keys=True)}")
     log(f"[main] eval {json.dumps(evals, sort_keys=True)}")
     for k, v in {**warm, **metrics, **evals}.items():
@@ -1032,11 +867,7 @@ def drive_main_path(counters):
     for k in main_path_kernels(counters):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    phases = meta["phase_timer"](runner, iters=1)
-    log(f"[main] phase_timer {json.dumps(phases, sort_keys=True)}")
-    return dict(launches=launches, env_steps_per_s=sps, block_s=block_s,
-                peak_gib=peak / 2**30, metrics=metrics, eval=evals, phases=phases,
-                update_profile=profile_update(meta, runner),
+    return dict(launches=launches, metrics=metrics, eval=evals,
                 model_flops_per_step=meta["model_flops_per_step"])
 
 
@@ -1077,7 +908,7 @@ OFFPOLICY = {
                 learning_starts=10_000, train_freq=1, exploration_fraction=0.1,
                 hidden_dim=64, log_interval=200, seed=0, verbose=False),
 }
-# (warm-up blocks, timed blocks): VDN's updates start after 10,000
+# (warm-up blocks, driven blocks): VDN's updates start after 10,000
 # transitions, inside its second block (vdn_pursuit: its fourth of 100
 # iterations, DRIVE_LOG_INTERVAL)
 OFFPOLICY_BLOCKS = {"qmix": (1, 3), "vdn": (2, 3), "vdn_pursuit": (4, 2)}
@@ -1145,87 +976,34 @@ def offpolicy_clock(name, cfg, step: int) -> int:
     return max(0, step // cfg.train_freq - (first - 1) // cfg.train_freq)
 
 
-def profile_block(train_block, runner, update_ms=None):
-    """The device busy share of one train_block: one block under
-    ``torch.profiler`` (CUDA activity) for its device time and op count,
-    then unprofiled blocks until one runs as many updates, for its wall
-    time. Where the updates per block vary (the episode clock), pass one
-    update's wall ``update_ms``: if none of four blocks matches, the last
-    one's wall is moved by the difference in updates times ``update_ms``
-    (``adjusted`` in the results). → (runner, results)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from cleanmarl_tpu_torch.core.driver import to_host
-
-    def block(runner):
-        n0 = runner.num_updates
-        t0 = time.perf_counter()
-        runner, metrics = train_block(runner)
-        to_host(metrics)
-        torch.cuda.synchronize()
-        return runner, time.perf_counter() - t0, runner.num_updates - n0
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        runner, wall_prof, n_prof = block(runner)
-    kernels = device_kernels(prof)
-    adjusted = False
-    for _ in range(4):
-        runner, wall, n = block(runner)
-        if n == n_prof:
-            break
-    else:
-        if update_ms is None:
-            fail(f"no unprofiled block ran {n_prof} updates like the profiled one")
-        wall, adjusted = wall + (n_prof - n) * update_ms / 1e3, True
-    busy = sum(sec for sec, _ in kernels.values())
-    n_ops = sum(c for _, c in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
-    return runner, dict(wall_s=wall, wall_profiled_s=wall_prof, device_busy_s=busy,
-                        adjusted=adjusted,
-                        device_ops=n_ops, updates=n_prof, busy_share=busy / wall,
-                        busy_share_profiled=busy / wall_prof,
-                        top=[dict(name=k, s=v[0], count=v[1]) for k, v in top])
-
-
 def drive_offpolicy(name, counters):
     """One recipe at full width on the card: warm-up blocks (incl. init),
-    timed blocks, one eval, the episode- or iteration-clock update count,
-    peak memory, the wall time of one update alone, and the busy share of
-    one block. Every kernel count is set to 0 before and read after: this
-    path launches no kernel."""
+    driven blocks, one eval, finite metrics, updates in the driven blocks,
+    the episode- or iteration-clock update count. Every kernel count is
+    set to 0 before and read after: this path launches no kernel."""
     import torch
     from cleanmarl_tpu_torch.core.driver import to_host
 
     mod, cfg = _offpolicy(name, "cuda")
     init, train_block, eval_fn, meta = mod.make_train(cfg)
-    n_warm, n_timed = OFFPOLICY_BLOCKS[name]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()       # what earlier phases still hold
+    n_warm, n_driven = OFFPOLICY_BLOCKS[name]
     for table in counters:
         for k in table:
             table[k] = 0
     seen = []
-    t0 = time.perf_counter()
     runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
     for _ in range(n_warm):
         runner, metrics = train_block(runner)
         seen.append(to_host(metrics))
-    t1 = time.perf_counter()
-    walls, updates = [], []
-    for _ in range(n_timed):
-        n0, s = runner.num_updates, time.perf_counter()
+    updates = []
+    for _ in range(n_driven):
+        n0 = runner.num_updates
         runner, metrics = train_block(runner)
         seen.append(to_host(metrics))
-        walls.append(time.perf_counter() - s)
         updates.append(runner.num_updates - n0)
-    t_eval = time.perf_counter()
     evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
-    t_eval = time.perf_counter() - t_eval
     launches = {k: v for table in counters for k, v in table.items()}
-    peak = torch.cuda.max_memory_allocated()
-    sps = meta["steps_per_block"] * n_timed / sum(walls)
     for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
         if not math.isfinite(v):
             fail(f"{name}: non-finite metric {k}={v}")
@@ -1234,48 +1012,16 @@ def drive_offpolicy(name, counters):
         fail(f"{name}: {runner.num_updates} updates after {runner.step} iterations, "
              f"the clock says {want}")
     if sum(updates) == 0:
-        fail(f"{name}: the timed blocks ran no update")
-    step, num_updates = runner.step, runner.num_updates
-
-    args = _sample(name, cfg, runner, torch.Generator("cuda").manual_seed(2))
-    state = (runner.params, runner.target_params, runner.opt_state)
-    meta["update"](*state, *args)
-    torch.cuda.synchronize()
-    s = time.perf_counter()
-    for _ in range(50):
-        meta["update"](*state, *args)
-    torch.cuda.synchronize()
-    update_ms = (time.perf_counter() - s) / 50 * 1e3
-    env_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (n_timed * cfg.log_interval) * 1e3
-    t_prof = time.perf_counter()
-    runner, prof = profile_block(train_block, runner)
-    t_prof = time.perf_counter() - t_prof
-
+        fail(f"{name}: the driven blocks ran no update")
     log(f"[{name}] {cfg.env_type} {cfg.env_name}, {cfg.num_envs} envs, "
-        f"{meta['steps_per_block']} env steps per train_block; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
-        f"timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with {updates} updates; "
-        f"env-steps/s {sps:.1f}")
-    log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an iteration "
-        f"(act, env step, replay write) {env_ms:.3f} ms; peak device memory "
-        f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before "
-        f"init; kernel launches on this path {launches}")
-    log(f"[{name}] {num_updates} updates after {step} iterations = the clock's {want}; "
-        f"last block {json.dumps(seen[-1], sort_keys=True)}")
-    log(f"[{name}] eval in {t_eval:.2f} s: {json.dumps(evals, sort_keys=True)}")
-    log(f"[{name}] one block ({prof['updates']} updates): device busy "
-        f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
-        f"{prof['wall_s']:.4f} s unprofiled ({100 * prof['busy_share']:.1f} % busy), "
-        f"{prof['wall_profiled_s']:.4f} s under the profiler "
-        f"({100 * prof['busy_share_profiled']:.1f} % busy); profiled and matched blocks with "
-        f"the trace read {t_prof:.2f} s")
-    for k in prof["top"]:
-        log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
-    return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
-                update_ms=update_ms, iteration_rest_ms=env_ms, peak_mib=peak / 2**20,
-                path_peak_mib=(peak - base) / 2**20,
-                launches=launches, num_updates=num_updates, step=step,
-                metrics=seen[-1], eval=evals, block_profile=prof, eval_s=t_eval,
-                profile_s=t_prof)
+        f"{meta['steps_per_block']} env steps per train_block; {n_warm} warm-up block(s) "
+        f"(incl. init), driven blocks with {updates} updates; kernel launches on this path "
+        f"{launches}")
+    log(f"[{name}] {runner.num_updates} updates after {runner.step} iterations = the clock's "
+        f"{want}; last block {json.dumps(seen[-1], sort_keys=True)}")
+    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    return dict(updates_per_block=updates, launches=launches, num_updates=runner.num_updates,
+                step=runner.step, metrics=seen[-1], eval=evals)
 
 
 # ---------------------------------------------------------------------------
@@ -1296,7 +1042,7 @@ RECQ = {
                            burn_in=8, buffer_size=20_000),
 }
 RECQ_DRIVEN = ("qmix_rnn_3m", "vdn_rnn_seq_3m")   # vdn_rnn_3m differs by the mixer only
-RECQ_TIMED_BLOCKS = 2
+RECQ_BLOCKS = 2
 # one train_block of the qmix_rnn_3m recipe's width (50 iterations of 64 envs)
 QMIX_RNN_CLI = ["--env_type", "smaclite", "--env_name", "3m", "--device", "cuda",
                 "--num_envs", "64", "--buffer_size", "500", "--batch_size", "32",
@@ -1391,22 +1137,16 @@ def recq_clock(cfg, runner, origin) -> int:
 def drive_recq(name, counters):
     """One recipe at full width on the card: warm-up blocks (iteration by
     iteration, to find where the ring first holds a batch) until updates
-    run, timed blocks, one eval, the clock's update count, the path's own
-    peak memory, one update's wall time alone, the busy share of one
-    block; every kernel count set to 0 before init and read after eval:
+    run, driven blocks, one eval, finite metrics, the clock's update
+    count; every kernel count set to 0 before init and read after eval:
     K2, K3 and dw must have launched, the L2 routes and K1 not."""
     import torch
     from cleanmarl_tpu_torch.core.driver import to_host
 
     cfg, (init, train_block, eval_fn, meta) = _recq(name, "cuda")
-    seq = cfg.replay == "sequence"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     for table in counters:
         for k in table:
             table[k] = 0
-    t0 = time.perf_counter()
     runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
     origin, n_warm = None, 0
     while origin is None or runner.num_updates == 0:
@@ -1419,20 +1159,15 @@ def drive_recq(name, counters):
         n_warm += 1
         if n_warm > 6:
             fail(f"{name}: no update after {n_warm} warm-up blocks")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    walls, updates, seen = [], [], []
-    for _ in range(RECQ_TIMED_BLOCKS):
-        n0, s = runner.num_updates, time.perf_counter()
+    updates, seen = [], []
+    for _ in range(RECQ_BLOCKS):
+        n0 = runner.num_updates
         runner, metrics = train_block(runner)
         seen.append(to_host(metrics))
-        walls.append(time.perf_counter() - s)
         updates.append(runner.num_updates - n0)
     evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
     launches = {k: v for table in counters for k, v in table.items()}
-    peak = torch.cuda.max_memory_allocated()
-    sps = meta["steps_per_block"] * RECQ_TIMED_BLOCKS / sum(walls)
     for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
         if not math.isfinite(v):
             fail(f"{name}: non-finite metric {k}={v}")
@@ -1448,51 +1183,22 @@ def drive_recq(name, counters):
         fail(f"{name}: {runner.num_updates} updates + {runner.update_debt} debt after "
              f"{runner.step} iterations and {runner.episodes} episodes, the clock says {want}")
     if sum(updates) == 0:
-        fail(f"{name}: the timed blocks ran no update")
-    step, episodes, num_updates, debt = (runner.step, runner.episodes, runner.num_updates,
-                                         runner.update_debt)
-
-    key = "update_seq" if seq else "update"
-    args = runner.ring.sample(torch.Generator("cuda").manual_seed(2), cfg.batch_size)
-    args = (args,) if seq else args
-    state = (runner.params, runner.target_params, runner.opt_state)
-    meta[key](*state, *args)
-    torch.cuda.synchronize()
-    s = time.perf_counter()
-    for _ in range(20):
-        meta[key](*state, *args)
-    torch.cuda.synchronize()
-    update_ms = (time.perf_counter() - s) / 20 * 1e3
-    rest_ms = (sum(walls) - sum(updates) * update_ms / 1e3) / (
-        RECQ_TIMED_BLOCKS * cfg.log_interval) * 1e3
-    runner, prof = profile_block(train_block, runner, update_ms=update_ms)
-
+        fail(f"{name}: the driven blocks ran no update")
+    num_updates = runner.num_updates
     per_update = {k: launches[k] / num_updates for k in ("gru_seq_fwd", "gru_seq_bwd",
                                                          "gru_seq_dw")}
     log(f"[{name}] smaclite 3m, {cfg.num_envs} envs, {meta['steps_per_block']} env steps per "
-        f"train_block, GRU route {meta['gru_impl']!r}; warm-up {n_warm} block(s) (incl. init) "
-        f"{t1 - t0:.3f} s; timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with "
-        f"{updates} updates; env-steps/s {sps:.1f}")
-    log(f"[{name}] one update alone {update_ms:.3f} ms wall; the rest of an iteration (act, "
-        f"env step, replay write, the sync) {rest_ms:.3f} ms; peak device memory "
-        f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**20:.1f} MiB held before init")
+        f"train_block, GRU route {meta['gru_impl']!r}; {n_warm} warm-up block(s) (incl. init), "
+        f"driven blocks with {updates} updates")
     log(f"[{name}] kernel launches {launches} ({per_update} per update)")
-    log(f"[{name}] {num_updates} updates + {debt} debt after {step} iterations and "
-        f"{episodes} episodes = the clock's {want} (from (step, episodes) {origin}); last block "
-        f"{json.dumps(seen[-1], sort_keys=True)}")
+    log(f"[{name}] {num_updates} updates + {runner.update_debt} debt after {runner.step} "
+        f"iterations and {runner.episodes} episodes = the clock's {want} (from (step, "
+        f"episodes) {origin}); last block {json.dumps(seen[-1], sort_keys=True)}")
     log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
-    log(f"[{name}] one block ({prof['updates']} updates): device busy "
-        f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
-        f"{prof['wall_s']:.4f} s unprofiled{' (adjusted)' if prof['adjusted'] else ''} "
-        f"({100 * prof['busy_share']:.1f} % busy), {prof['wall_profiled_s']:.4f} s under "
-        f"the profiler ({100 * prof['busy_share_profiled']:.1f} % busy)")
-    for k in prof["top"]:
-        log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
-    return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
-                warmup_blocks=n_warm, update_ms=update_ms, iteration_rest_ms=rest_ms,
-                path_peak_gib=(peak - base) / 2**30, launches=launches,
-                launches_per_update=per_update, num_updates=num_updates, update_debt=debt,
-                step=step, clock=want, metrics=seen[-1], eval=evals, block_profile=prof)
+    return dict(updates_per_block=updates, warmup_blocks=n_warm, launches=launches,
+                launches_per_update=per_update, num_updates=num_updates,
+                update_debt=runner.update_debt, step=runner.step, clock=want,
+                metrics=seen[-1], eval=evals)
 
 
 # ---------------------------------------------------------------------------
@@ -1589,7 +1295,7 @@ def time_k1_at(results, key, r, e, v, b, lam, want_R, label):
     # kernel reads (r and e share one repeat factor there)
     base_R = [(rk.repeat_base(x) or (None, 1))[1] for x in (r, e, v)]
     n_bytes = returns_bytes(T, B, base_R[0], base_R[2], base_R[1])
-    bnd, by = bound_ms(n_bytes, 8 * T * B)
+    bnd = n_bytes / PEAK_BYTES_PER_S * 1e3     # the yardstick's least time of K1: its bytes
     ms, warm = device_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, lam))
     host = host_ms(lambda: rk.lambda_returns_kernel(r, e, v, b, 0.99, lam))
     plain = time_ms(lambda: rk.lambda_returns_plain(r, e, v, b, 0.99, lam), 10)
@@ -1599,15 +1305,15 @@ def time_k1_at(results, key, r, e, v, b, lam, want_R, label):
     log(f"[kernels] lambda_returns at {label} (T={T}, {B} columns, R=({Rr}, {Rv}) read, "
         f"inputs' own R (r, e, v)={tuple(base_R)}, "
         f"{int(e[..., 0].sum())} episode ends): max_abs_err={err:.3e}; {n_bytes} B, bound "
-        f"{bnd:.6f} ms ({by}); device ms cold/warm: kernel {ms:.5f}/{warm:.5f} "
+        f"{bnd:.6f} ms (bytes); device ms cold/warm: kernel {ms:.5f}/{warm:.5f} "
         f"({ms * 1e3 / T:.3f} µs a step cold), one copy of {n_bytes} B {copy_ms:.5f}/"
         f"{copy_warm:.5f}; wrapper host {host:.5f} ms per call; plain {plain:.4f} ms")
     row = results["lambda_returns"]
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row[key] = dict(T=T, columns=B, R=[Rr, Rv], input_R=base_R, ms=ms, warm_ms=warm,
-                    bound_ms=bnd, bound_by=by,
-                    plain_ms=plain, library_ms=None, copy_ms=copy_ms, copy_warm_ms=copy_warm,
-                    host_ms=host, max_abs_err=err, us_per_step=ms * 1e3 / T, bytes=n_bytes)
+                    bound_ms=bnd, plain_ms=plain, library_ms=None, copy_ms=copy_ms,
+                    copy_warm_ms=copy_warm, host_ms=host, max_abs_err=err,
+                    us_per_step=ms * 1e3 / T, bytes=n_bytes)
 
 
 def check_paths7_shapes(results):
@@ -1752,14 +1458,12 @@ def check_updates_against_cpu(names, tag):
 
 def drive_recipe(name, counters):
     """One phase-7 or phase-8 recipe at its widths on the card: warm-up
-    blocks (incl. init) until updates run, timed blocks, one eval; the
-    update clock (MADDPG, FACMAC: updates + debt = one per completed episode
-    from the first commit, which fills the batch; COMA: one per rollout;
-    IPPO: epochs x minibatches per rollout); every kernel's launches,
-    counted from 0 before init to after eval, equal to its launches per
-    update call (IPPO: per rollout) times the calls; the path's own peak
-    memory; one update call's wall time alone; the busy share of one
-    block."""
+    blocks (incl. init) until updates run, driven blocks, one eval, finite
+    metrics; the update clock (MADDPG, FACMAC: updates + debt = one per
+    completed episode from the first commit, which fills the batch; COMA:
+    one per rollout; IPPO: epochs x minibatches per rollout); every
+    kernel's launches, counted from 0 before init to after eval, equal to
+    its launches per update call (IPPO: per rollout) times the calls."""
     import torch
     from cleanmarl_tpu_torch.core.driver import to_host
 
@@ -1768,15 +1472,11 @@ def drive_recipe(name, counters):
     mod, cfg = _recipe(name, "cuda", DRIVE_LOG_INTERVAL.get(name, ONPOLICY_LOG_INTERVAL)
                        if onpolicy else None)
     init, train_block, eval_fn, meta = mod.make_train(cfg)
-    n_timed = 2 if onpolicy else 3
+    n_driven = 2 if onpolicy else 3
     per_call = cfg.epochs * max(1, cfg.num_minibatches) if algo == "ippo" else 1
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     for table in counters:
         for k in table:
             table[k] = 0
-    t0 = time.perf_counter()
     runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
     seen, n_warm = [], 0
     while runner.num_updates == 0:
@@ -1785,21 +1485,15 @@ def drive_recipe(name, counters):
         n_warm += 1
         if n_warm > 3:
             fail(f"{name}: no update after {n_warm} warm-up blocks")
-    t1 = time.perf_counter()
-    walls, updates = [], []
-    for _ in range(n_timed):
-        n0, s = runner.num_updates, time.perf_counter()
+    updates = []
+    for _ in range(n_driven):
+        n0 = runner.num_updates
         runner, metrics = train_block(runner)
         seen.append(to_host(metrics))
-        walls.append(time.perf_counter() - s)
         updates.append(runner.num_updates - n0)
-    t_eval = time.perf_counter()
     evals = to_host(eval_fn(runner.actor_params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
-    t_eval = time.perf_counter() - t_eval
     launches = {k: v for table in counters for k, v in table.items()}
-    peak = torch.cuda.max_memory_allocated()
-    sps = meta["steps_per_block"] * n_timed / sum(walls)
     for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
         if not math.isfinite(v):
             fail(f"{name}: non-finite metric {k}={v}")
@@ -1810,74 +1504,30 @@ def drive_recipe(name, counters):
             fail(f"{name}: {k} launched {v} times in {calls} update calls, expected "
                  f"{per_update.get(k, 0)} per call")
     if onpolicy:
-        rollouts = (n_warm + n_timed) * cfg.log_interval
+        rollouts = (n_warm + n_driven) * cfg.log_interval
         clock = rollouts * per_call
-        iters = cfg.log_interval * meta["rollout_len"]
         ok = (runner.num_updates == clock
               and runner.step == rollouts * meta["rollout_len"] * cfg.num_envs)
     else:
         clock = offpolicy_clock("qmix", cfg, runner.step)
-        iters = cfg.log_interval
         ok = (runner.num_updates + runner.update_debt == clock
               and seen[-1]["train/update_debt"] == runner.update_debt)
     if not ok or seen[-1]["train/num_updates"] != runner.num_updates:
         fail(f"{name}: {runner.num_updates} updates after {runner.step} "
              f"{'env steps' if onpolicy else 'iterations'}, the clock says {clock}")
-    step, num_updates = runner.step, runner.num_updates
-
-    if onpolicy:
-        eps = (cfg.end_e,) if algo == "coma" else ()
-        r2, traj, h0 = meta["collect_rollout"](runner, *eps)
-        upd = meta["update"] if algo == "coma" else meta["ppo_update"]
-
-        def one_update():
-            upd(r2, traj, h0, *eps)
-    else:
-        g = torch.Generator("cuda").manual_seed(2)
-        batch, mask = runner.ring.sample(g, cfg.batch_size)
-        noise = meta["draw_noise"](g, batch["action"].shape)
-
-        def one_update():
-            meta["update"](runner, batch, mask, noise)
-    one_update()
-    torch.cuda.synchronize()
-    s = time.perf_counter()
-    for _ in range(10):
-        one_update()
-    torch.cuda.synchronize()
-    update_ms = (time.perf_counter() - s) / 10 * 1e3
-    rest_ms = (sum(walls) - sum(updates) / per_call * update_ms / 1e3) / (n_timed * iters) * 1e3
-    t_prof = time.perf_counter()
-    runner, prof = profile_block(train_block, runner, update_ms=update_ms / per_call)
-    t_prof = time.perf_counter() - t_prof
-
     log(f"[{name}] {cfg.env_type} {cfg.env_name}, {cfg.num_envs} envs, "
         f"{meta['steps_per_block']} env steps per train_block, GRU route "
-        f"{meta.get('gru_impl')!r}; warm-up {n_warm} block(s) (incl. init) {t1 - t0:.3f} s; "
-        f"timed blocks {', '.join(f'{w:.3f}' for w in walls)} s with {updates} updates; "
-        f"env-steps/s {sps:.1f}")
-    log(f"[{name}] one update call alone {update_ms:.3f} ms wall; the rest of an env step "
-        f"(act, env step, replay or rollout write) {rest_ms:.3f} ms; peak device memory "
-        f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before init")
+        f"{meta.get('gru_impl')!r}; {n_warm} warm-up block(s) (incl. init), driven blocks "
+        f"with {updates} updates")
     log(f"[{name}] kernel launches {launches} = {per_update} per update call x {calls} calls")
-    log(f"[{name}] {num_updates} updates (+ {getattr(runner, 'update_debt', 0)} debt) after "
-        f"{step} {'env steps' if onpolicy else 'iterations'} = the clock's {clock}; "
-        f"last block {json.dumps(seen[-1], sort_keys=True)}")
-    log(f"[{name}] eval in {t_eval:.2f} s: {json.dumps(evals, sort_keys=True)}")
-    log(f"[{name}] one block ({prof['updates']} updates): device busy "
-        f"{prof['device_busy_s']:.4f} s in {prof['device_ops']} device ops; wall "
-        f"{prof['wall_s']:.4f} s unprofiled{' (adjusted)' if prof['adjusted'] else ''} "
-        f"({100 * prof['busy_share']:.1f} % busy), {prof['wall_profiled_s']:.4f} s under "
-        f"the profiler ({100 * prof['busy_share_profiled']:.1f} % busy); profiled and matched "
-        f"blocks with the trace read {t_prof:.2f} s")
-    for k in prof["top"]:
-        log(f"[{name}]   {k['s'] * 1e3:9.4f} ms {k['count']:6d}x {k['name'][:90]}")
-    return dict(env_steps_per_s=sps, block_s=walls, updates_per_block=updates,
-                warmup_blocks=n_warm, update_ms=update_ms, iteration_rest_ms=rest_ms,
-                path_peak_mib=(peak - base) / 2**20, launches=launches,
-                launches_per_update=per_update, update_calls=calls, num_updates=num_updates,
-                step=step, clock=clock, metrics=seen[-1], eval=evals, block_profile=prof,
-                eval_s=t_eval, profile_s=t_prof)
+    log(f"[{name}] {runner.num_updates} updates (+ {getattr(runner, 'update_debt', 0)} debt) "
+        f"after {runner.step} {'env steps' if onpolicy else 'iterations'} = the clock's "
+        f"{clock}; last block {json.dumps(seen[-1], sort_keys=True)}")
+    log(f"[{name}] eval {json.dumps(evals, sort_keys=True)}")
+    return dict(updates_per_block=updates, warmup_blocks=n_warm, launches=launches,
+                launches_per_update=per_update, update_calls=calls,
+                num_updates=runner.num_updates, step=runner.step, clock=clock,
+                metrics=seen[-1], eval=evals)
 
 
 # ---------------------------------------------------------------------------
@@ -1959,57 +1609,6 @@ def check_paths8_shapes(results):
     errs, ins, hs, rec = check_gru_shape(T, M, H, seed=1281, keep=keep)
     add_shape_rows(results, "lbf_rnn_shapes", T, M, H, time_gru(T, M, H, ins, hs, rec))
     keep_max_err(results, errs)
-
-
-def profile_env_step(env_type, env_name, num_envs, n_prof=10):
-    """One ``VecEnv.step`` of ``num_envs`` envs on the card (the env step and
-    the reset it selects from) and its two parts alone: host ms a call
-    (synchronised), then each under ``torch.profiler`` for its device ops
-    and device time a call, over ``n_prof`` calls after a discarded
-    warm-up step of the profiler (a lone short call can lose its records)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from cleanmarl_tpu_torch.envs import registry
-    from cleanmarl_tpu_torch.envs.base import VecEnv
-
-    env = registry.make(env_type, env_name, agent_ids=True)
-    vec = VecEnv(env, num_envs)
-    gen = torch.Generator("cuda").manual_seed(0)
-    state, ts = vec.reset(gen)
-    actions = vec.sample(gen, ts.avail)
-    parts = {"vec_step": lambda: vec.step(state, actions, gen),
-             "env_step": lambda: env.step(state, actions, gen),
-             "reset": lambda: env.reset(num_envs, gen)}
-    out = {}
-    for part, fn in parts.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 20
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(n_prof):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        kernels = device_kernels(prof)
-        ops = sum(c for _, c in kernels.values())
-        if ops == 0:
-            fail(f"{env_type} {part}: the profiler recorded no device op in {n_prof} calls")
-        out[part] = dict(wall_ms=wall * 1e3, device_ops=ops / n_prof,
-                         device_ms=sum(sec for sec, _ in kernels.values()) * 1e3 / n_prof)
-    log(f"[paths8] {env_type} {env_name or ''} VecEnv.step at {num_envs} envs, device ops "
-        f"and ms a call over {n_prof} profiled calls: " + "; ".join(
-        f"{k} {v['device_ops']:g} device ops, {v['device_ms']:.3f} ms device, "
-        f"{v['wall_ms']:.3f} ms wall" for k, v in out.items()))
-    return out
 
 
 def check_host_route(counters):
@@ -2161,10 +1760,8 @@ def check_collisions(counters):
             table[k] = 0
     cfg = PPOConfig(**BENCH, unit_collisions=True, device="cuda")
     init, train_block, _, meta = make_train(cfg)
-    t0 = time.perf_counter()
     _, metrics = train_block(init(torch.Generator("cuda").manual_seed(0)))
     metrics = to_host(metrics)
-    wall = time.perf_counter() - t0
     launches = {k: v for table in counters for k, v in table.items()}
     for k, v in metrics.items():
         if not math.isfinite(v):
@@ -2173,9 +1770,9 @@ def check_collisions(counters):
         fail(f"3m with collisions: a kernel of the path did not launch: {launches}")
     log(f"[collisions] one step of 64 squeezed 3m envs, card vs CPU: max |diff| {err:.3e} "
         f"(the push-out moved allies up to {moved:.3f}); one MAPPO block at the bench widths "
-        f"({meta['steps_per_block']} env steps, incl. init) {wall:.3f} s, launches {launches}, "
+        f"({meta['steps_per_block']} env steps), launches {launches}, "
         f"ep_reward {metrics.get('rollout/ep_reward', float('nan')):.4f}")
-    return dict(max_abs_err=err, moved=moved, block_s=wall, launches=launches, metrics=metrics)
+    return dict(max_abs_err=err, moved=moved, launches=launches, metrics=metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -2283,18 +1880,8 @@ def check_resume(optimizer: str = "adam", tag: str = "resume"):
     work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
     try:
         ckpt = Checkpointer(work, field_dims=DATA_FIELD_DIMS["PPO"], seed=cfg.seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         ckpt.save(runner.step, runner, wait=True)
-        save_s = time.perf_counter() - t0
-        step_dir = os.path.join(work, str(runner.step))
-        size = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
-        template = init(torch.Generator("cuda").manual_seed(1))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restored = ckpt.restore(template)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
+        restored = ckpt.restore(init(torch.Generator("cuda").manual_seed(1)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     same, differ = compare_runners(restored, runner, "restored runner")
@@ -2308,12 +1895,10 @@ def check_resume(optimizer: str = "adam", tag: str = "resume"):
         fail(f"resumed block's metrics differ: {ma} vs {mb}")
     state = ("bitwise identical" if bitwise else
              f"within {RESUME_TOL}, not bitwise at {differ}")
-    log(f"[{tag}] {optimizer}: checkpoint of {BENCH['num_envs']} envs at step {runner.step}: "
-        f"{size / 2**20:.2f} MiB, save {save_s:.3f} s, restore {restore_s:.3f} s; resumed "
-        f"block ends at step {b.step} (uninterrupted {a.step}); params, optimizer moments, "
-        f"env state, generators and counters {state}")
-    return dict(size_mib=size / 2**20, save_s=save_s, restore_s=restore_s,
-                step=runner.step, resumed_step=b.step, bitwise=bitwise, differ=differ)
+    log(f"[{tag}] {optimizer}: checkpoint of {BENCH['num_envs']} envs at step {runner.step}; "
+        f"resumed block ends at step {b.step} (uninterrupted {a.step}); params, optimizer "
+        f"moments, env state, generators and counters {state}")
+    return dict(step=runner.step, resumed_step=b.step, bitwise=bitwise, differ=differ)
 
 
 def _rank_entry(rank, world, port, body, args, out):
@@ -2454,24 +2039,15 @@ def _dp_rank_body(rank, world, port):
     for table in counters:
         for k in table:
             table[k] = 0
-    walls = []
-    comm = dp.COMM
-    for timed in (False, False, True):
-        if timed:
-            comm.reset(timed=True)
-        torch.cuda.synchronize()
-        dist.barrier()
-        t0 = time.perf_counter()
+    for block in range(3):
+        if block == 2:
+            dp.COMM.reset()
         runner, metrics = train_block(runner)
         metrics = to_host(metrics)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if len(walls) == 1:
+        if block == 0:
             res["launches"] = {k: v for table in counters for k, v in table.items()}
-    res.update(block_walls=walls, metrics=metrics, step=runner.step,
-               params_identical=identical(runner), comm_calls=comm.calls,
-               comm_bytes=comm.bytes, comm_s=comm.seconds,
-               updates_per_block=cfg.log_interval,
+    res.update(metrics=metrics, step=runner.step, params_identical=identical(runner),
+               comm_calls=dp.COMM.calls, comm_bytes=dp.COMM.bytes,
                finite=all(math.isfinite(v) for v in metrics.values()))
     return res
 
@@ -2487,9 +2063,7 @@ def check_data_parallel():
     reported, since over 64 Adam steps an element whose gradient is near
     Adam's eps (1e-8) moves by the sign of its float32 summation noise,
     which the split changes. Then three driven blocks per rank (the first
-    counts the kernels' launches, the second gives env-steps/s, the third
-    times each collective between two synchronizes)."""
-    t0 = time.perf_counter()
+    counts the kernels' launches, the third the collectives)."""
     results = dict(enumerate(spawn_ranks("_dp_rank_body", timeout=600)))
     r0 = results[0]
     for name in ("one_step_scan", "one_step_kernel"):
@@ -2508,9 +2082,6 @@ def check_data_parallel():
         for k in KERNEL_KEYS:
             if r["launches"].get(k, 0) <= 0:
                 fail(f"kernel {k} was not launched on rank {r['rank']}: {r['launches']}")
-    steps = BENCH["num_envs"] * BENCH["rollout_len"] * BENCH["log_interval"]
-    block_s = max(r["block_walls"][1] for r in results.values())
-    ar_ms = r0["comm_s"] / r0["updates_per_block"] * 1e3
     log(f"[dp] {DP_WORLD} ranks on one card (gloo), {r0['local_envs']} envs each, one update "
         f"on a fixed trajectory against the single-process one (params and metrics max "
         f"|diff|, gradients relative to each leaf's largest):")
@@ -2520,17 +2091,12 @@ def check_data_parallel():
         log(f"[dp]   {name}: params {u['params_err']:.3e} ({u['params_outside']} of "
             f"{u['params_total']} outside PPO_TOL), gradients {u['grads_rel_err']:.3e}, "
             f"metrics {u['metrics_err']:.3e}; {held}")
-    log("[dp] params bitwise identical across ranks after 3 driven blocks (kernel route)")
-    walls = [[round(w, 3) for w in results[k]["block_walls"]] for k in sorted(results)]
-    log(f"[dp] block walls (s) by rank {walls}"
-        f"; global env-steps/s {steps / block_s:.1f} (block 2); all-reduce {ar_ms:.3f} ms per "
-        f"update ({r0['comm_calls']} collectives, {r0['comm_bytes']} bytes in block 3, "
-        f"each between synchronizes); spawn to results {time.perf_counter() - t0:.1f} s")
+    log(f"[dp] params bitwise identical across ranks after 3 driven blocks (kernel route); "
+        f"{r0['comm_calls']} collectives, {r0['comm_bytes']} bytes in block 3")
     for rank in sorted(results):
         r = results[rank]
         log(f"[dp] rank {rank} on {r['device']}: launches in block 1 {r['launches']}")
-    return dict(ranks=results, env_steps_per_s=steps / block_s, allreduce_ms_per_update=ar_ms,
-                launches=r0["launches"])
+    return dict(ranks=results, launches=r0["launches"])
 
 
 def run_procs(cmds, timeout=600, module="mappo"):
@@ -2572,21 +2138,17 @@ def check_dp_cli():
                           "--num_processes", str(DP_WORLD), "--process_id", str(i)]
                 for i in range(DP_WORLD)]
     try:
-        t0 = time.perf_counter()
         outs = run_procs(cluster(DP_CLI_STEPS[0], False) + [
             DP_CLI + ["--total_timesteps", "7200", "--profile_dir", prof]])
-        t1 = time.perf_counter()
         if "[dist] 2 ranks, backend gloo" not in outs[0] or "[MAPPO]" in outs[1]:
             fail(f"2-process CLI: rank 0 must print alone:\n{outs[0][-1500:]}\n{outs[1][-1500:]}")
         saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
         if saved[-1:] != [DP_CLI_STEPS[0]]:
             fail(f"2-process CLI saved steps {saved}")
         traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
-        trace_mib = sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 2**20
         if not traces or "[MAPPO] phases:" not in outs[2]:
             fail(f"--profile_dir left no trace or printed no phases:\n{outs[2][-2000:]}")
         outs2 = run_procs(cluster(DP_CLI_STEPS[1], True))
-        t2 = time.perf_counter()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     want = f"[MAPPO] resumed from step {DP_CLI_STEPS[0]}"
@@ -2600,10 +2162,8 @@ def check_dp_cli():
     for line in [dist_line, want] + outs2[0].strip().splitlines()[-2:]:
         log(f"[dp-cli] {line}")
     log(f"[dp-cli] saved {saved}; resumed cluster steps {steps}; profile trace "
-        f"{len(traces)} file(s), {trace_mib:.1f} MiB; first cluster + profile run "
-        f"{t1 - t0:.1f} s, resumed cluster {t2 - t1:.1f} s")
-    return dict(saved=saved, resumed_steps=steps, trace_files=len(traces),
-                trace_mib=trace_mib, walls=[t1 - t0, t2 - t1])
+        f"{len(traces)} file(s)")
+    return dict(saved=saved, resumed_steps=steps, trace_files=len(traces))
 
 
 # ---------------------------------------------------------------------------
@@ -2624,9 +2184,8 @@ P10_ENVS, P10_COMMIT_STEPS = 64, 60
 # gradient norms, relative to each one's magnitude where it is above 1: a
 # norm near 100 has float32 steps of 8e-6)
 P10_PARAM_TOL, P10_GRAD_TOL, P10_METRIC_TOL = 5e-5, 1e-5, 1e-5
-# (c) qmix_rnn_3m at its recipe's width: timed blocks, then one block with
-# each collective timed between two synchronizes
-P10_TIMED_BLOCKS = 2
+# (c) qmix_rnn_3m at its recipe's width: driven blocks
+P10_BLOCKS = 3
 # (d) scripts/validate_baselines.py:286-298 facmac_3m, copied; the other
 # recipes are phases 5-7's. Each runs blocks until an update has run, then
 # one more; run length only is cut (vdn_spread: 100 iterations a block)
@@ -2807,30 +2366,22 @@ def _p10_params(runner):
             if hasattr(runner, k)}
 
 
-def _p10_drive(name, counters, timed_blocks, comm_block):
+def _p10_drive(name, counters, blocks):
     """``name`` on this rank of the group at its recipe's width: init
     (``global_runner_init``), warm-up iterations until the ring holds a
-    batch and an update has run, then ``timed_blocks`` blocks (kernel
-    counts and ``dp.COMM`` set to 0 before them) and, if ``comm_block``,
-    one more with each collective timed. → the measures of this rank."""
+    batch and an update has run, then ``blocks`` blocks (kernel counts and
+    ``dp.COMM`` set to 0 before them). → what this rank saw."""
     import torch
-    import torch.distributed as dist
     from cleanmarl_tpu_torch.core.driver import to_host
     from cleanmarl_tpu_torch.core.params import tree_leaves
     from cleanmarl_tpu_torch.distributed import dp
 
     mod, cfg, table = _p10_recipe(name, "cuda")
     rank = dp.rank_world()[0]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
     init, train_block, _, meta = mod.make_train(cfg)
     runner = dp.global_runner_init(init, torch.Generator("cuda").manual_seed(
         dp.rank_seed(cfg.seed, rank)), table)
     ring = getattr(runner, "ring", None) or runner.buffer
-    ring_mib = sum(x.numel() * x.element_size() for x in tree_leaves(ring.data) + (
-        [ring.length] if hasattr(ring, "length") else [])) / 2**20
     warm = 0
     while runner.num_updates == 0:
         out = meta["train_iter"](runner)      # MADDPG's returns the runner alone
@@ -2839,44 +2390,28 @@ def _p10_drive(name, counters, timed_blocks, comm_block):
         if warm > 20 * cfg.log_interval:
             fail(f"{name}: no update after {warm} warm-up iterations on rank {rank}")
     runner = runner.replace(stats=runner.stats.flush())
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     for table_ in counters:
         for k in table_:
             table_[k] = 0
     dp.COMM.reset()
-    walls, updates, seen = [], [], []
-    for i in range(timed_blocks + int(comm_block)):
-        if i == timed_blocks:
-            calls, sent = dp.COMM.calls, dp.COMM.bytes
-            launches = {k: v for t in counters for k, v in t.items()}
-            dp.COMM.reset(timed=True)
+    updates, seen = [], []
+    for _ in range(blocks):
         n0 = runner.num_updates
-        torch.cuda.synchronize()
-        dist.barrier()
-        s = time.perf_counter()
         runner, metrics = train_block(runner)
         seen.append(to_host(metrics))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - s)
         updates.append(runner.num_updates - n0)
-    if not comm_block:
-        calls, sent = dp.COMM.calls, dp.COMM.bytes
-        launches = {k: v for t in counters for k, v in t.items()}
-    comm_ms = dp.COMM.seconds * 1e3 / max(updates[-1], 1) if comm_block else None
-    dp.COMM.reset()
     torch.cuda.synchronize()
+    launches = {k: v for t in counters for k, v in t.items()}
+    calls, sent = dp.COMM.calls, dp.COMM.bytes
+    dp.COMM.reset()
     return dict(
         name=name, rank=rank, local_envs=meta["local_envs"], warmup_iters=warm,
-        setup_s=setup_s, block_walls=walls, updates=updates, metrics=seen,
+        updates=updates, metrics=seen,
         finite=all(math.isfinite(v) for m in seen for v in m.values()),
         step=runner.step, episodes=getattr(runner, "episodes", None),
         num_updates=runner.num_updates, cursor=ring.cursor, size=ring.size,
-        capacity=ring.capacity, rows=tree_leaves(ring.data)[0].shape[0], ring_mib=ring_mib,
-        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30, launches=launches,
-        comm_calls=calls, comm_bytes=sent, comm_ms_per_update=comm_ms,
-        identical=_p10_identical(_p10_params(runner)),
-        steps_per_block=meta["steps_per_block"])
+        capacity=ring.capacity, rows=tree_leaves(ring.data)[0].shape[0], launches=launches,
+        comm_calls=calls, comm_bytes=sent, identical=_p10_identical(_p10_params(runner)))
 
 
 def _p10_rank_body(rank, world, port):
@@ -2890,14 +2425,12 @@ def _p10_rank_body(rank, world, port):
         res["commit_ref"] = {n: _p10_feed(*c, 0, 1) for n, c in cases.items()}
         res["update_ref"] = _p10_updates(1)
     _join_group(rank, world, port)
-    t0 = time.perf_counter()
     res["commit"] = {n: _p10_feed(*c, rank, world) for n, c in cases.items()}
     res["update"] = _p10_updates(world)
-    res["ab_s"] = time.perf_counter() - t0
     counters = (returns_kernel.LAUNCHES, gru_kernel.LAUNCHES)
-    res["drive"] = {"qmix_rnn_3m": _p10_drive("qmix_rnn_3m", counters, P10_TIMED_BLOCKS, True)}
+    res["drive"] = {"qmix_rnn_3m": _p10_drive("qmix_rnn_3m", counters, P10_BLOCKS)}
     for name in P10_OTHERS:
-        res["drive"][name] = _p10_drive(name, counters, 1, False)
+        res["drive"][name] = _p10_drive(name, counters, 1)
     return res
 
 
@@ -2912,16 +2445,13 @@ def _p10_union(ranks, key, cap):
                     *[r[key] for r in ranks])
 
 
-def check_offpolicy_dp(recq_single):
+def check_offpolicy_dp():
     """Phase 10 (a)-(d) over two gloo ranks on the card; see the module
-    docstring. ``recq_single`` is phase 6's ``qmix_rnn_3m`` result, the
-    single process beside which the 2-rank env-steps/s is read (None:
-    none ran)."""
+    docstring."""
     import numpy as np
     from cleanmarl_tpu_torch.core.params import tree_leaves
     from cleanmarl_tpu_torch.distributed import dp
 
-    t0 = time.perf_counter()
     ranks = spawn_ranks("_p10_rank_body", timeout=900)
     r0 = ranks[0]
 
@@ -2990,9 +2520,7 @@ def check_offpolicy_dp(recq_single):
                 fail(f"[p10 {name}] the block metrics differ across the ranks")
         if sum(d[0]["updates"]) == 0:
             fail(f"[p10 {name}] the blocks ran no update")
-        n_timed = P10_TIMED_BLOCKS if name == "qmix_rnn_3m" else 1
-        upd_timed = sum(d[0]["updates"][:n_timed])
-        per_update = {k: [r["launches"][k] / max(upd_timed, 1) for r in d]
+        per_update = {k: [r["launches"][k] / max(sum(d[0]["updates"]), 1) for r in d]
                       for k in ("gru_seq_fwd", "gru_seq_bwd", "gru_seq_dw")}
         recurrent = name in ("qmix_rnn_3m", "vdn_rnn_seq_3m", "maddpg_rnn_sl")
         for r in d:
@@ -3004,32 +2532,15 @@ def check_offpolicy_dp(recq_single):
                 if r["launches"][k]:
                     fail(f"[p10 {name}] {k} launched {r['launches'][k]} times on rank "
                          f"{r['rank']}, a path that must not take it")
-        block_s = [max(r["block_walls"][i] for r in d) for i in range(n_timed)]
-        sps = d[0]["steps_per_block"] * n_timed / sum(block_s)
-        drive[name] = dict(ranks=d, env_steps_per_s=sps, block_s=block_s,
-                           launches_per_update=per_update, launches=d[0]["launches"])
+        drive[name] = dict(ranks=d, launches_per_update=per_update, launches=d[0]["launches"])
         log(f"[p10 {name}] {DP_WORLD} ranks x {d[0]['local_envs']} envs; warm-up "
-            f"{d[0]['warmup_iters']} iterations ({max(r['setup_s'] for r in d):.1f} s incl. "
-            f"init); blocks {[round(w, 3) for w in block_s]} s (slower rank) with "
-            f"{d[0]['updates']} updates; global env-steps/s {sps:.1f}; step {d[0]['step']}, "
-            f"episodes {d[0]['episodes']}, cursor {d[0]['cursor']}, size {d[0]['size']} on "
-            f"every rank; params bitwise identical")
-        log(f"[p10 {name}] ring {[round(r['ring_mib'], 1) for r in d]} MiB and peak "
-            f"{[round(r['peak_gib'], 3) for r in d]} GiB by rank (rows "
-            f"{[r['rows'] for r in d]} of {d[0]['capacity']}); collectives "
-            f"{d[0]['comm_calls']} ({d[0]['comm_bytes']} bytes) in {n_timed} block(s); "
-            f"launches per update by rank {per_update}")
-    q = drive["qmix_rnn_3m"]
-    q["comm_ms_per_update"] = [r["comm_ms_per_update"] for r in q["ranks"]]
-    beside = ""
-    if recq_single is not None:
-        q["single_env_steps_per_s"] = single = recq_single["env_steps_per_s"]
-        beside = (f" against the single process's {single:.1f} in phase 6 "
-                  f"({q['env_steps_per_s'] / single:.2f}x)")
-    log(f"[p10 qmix_rnn_3m] {DP_WORLD} ranks {q['env_steps_per_s']:.1f} global env-steps/s"
-        f"{beside}; collectives {[round(x, 3) for x in q['comm_ms_per_update']]} ms per "
-        f"update by rank (a block with each between synchronizes); spawn to results "
-        f"{time.perf_counter() - t0:.1f} s")
+            f"{d[0]['warmup_iters']} iterations; {len(d[0]['updates'])} block(s) with "
+            f"{d[0]['updates']} updates; step {d[0]['step']}, episodes {d[0]['episodes']}, "
+            f"cursor {d[0]['cursor']}, size {d[0]['size']} on every rank; params bitwise "
+            f"identical")
+        log(f"[p10 {name}] rows {[r['rows'] for r in d]} of {d[0]['capacity']} by rank; "
+            f"collectives {d[0]['comm_calls']} ({d[0]['comm_bytes']} bytes); launches per "
+            f"update by rank {per_update}")
     return dict(commit=sorted(P10_COMMITS), update=upd, drive=drive)
 
 
@@ -3059,16 +2570,8 @@ def check_offpolicy_resume():
     work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
     try:
         ckpt = Checkpointer(work, field_dims=table, seed=cfg.seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         ckpt.save(runner.step, runner, wait=True)
-        save_s = time.perf_counter() - t0
-        step_dir = os.path.join(work, str(runner.step))
-        size = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
-        t0 = time.perf_counter()
         restored = ckpt.restore(init(torch.Generator("cuda").manual_seed(1)))
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     same, differ = compare_runners(restored, runner, "restored off-policy runner")
@@ -3083,11 +2586,9 @@ def check_offpolicy_resume():
     state = ("bitwise identical" if bitwise else
              f"within {RESUME_TOL}, not bitwise at {differ}")
     log(f"[p10 resume] qmix_rnn_3m ({cfg.num_envs} envs, ring of {cfg.buffer_size} episodes) "
-        f"at step {runner.step}: {size / 2**20:.2f} MiB, save {save_s:.3f} s, restore "
-        f"{restore_s:.3f} s; resumed block ({b.num_updates - runner.num_updates} updates) "
+        f"at step {runner.step}: resumed block ({b.num_updates - runner.num_updates} updates) "
         f"{state} but for the ring's scratch row")
-    return dict(size_mib=size / 2**20, save_s=save_s, restore_s=restore_s, step=runner.step,
-                bitwise=bitwise, differ=differ)
+    return dict(step=runner.step, bitwise=bitwise, differ=differ)
 
 
 def check_offpolicy_cli():
@@ -3111,13 +2612,10 @@ def check_offpolicy_cli():
                            "--num_processes", str(DP_WORLD), "--process_id", str(i)]
                 for i in range(DP_WORLD)]
     try:
-        t0 = time.perf_counter()
         outs = run_procs(cluster(P10_CLI_STEPS[0], False), module="qmix")
-        t1 = time.perf_counter()
         saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
         files = sorted(os.listdir(os.path.join(ckpt, str(P10_CLI_STEPS[0]))))
         outs2 = run_procs(cluster(P10_CLI_STEPS[1], True), module="qmix")
-        t2 = time.perf_counter()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "[dist] 2 ranks, backend gloo" not in outs[0] or "[QMIX]" in outs[1]:
@@ -3130,9 +2628,8 @@ def check_offpolicy_cli():
     steps = [int(x) for x in re.findall(r"\[QMIX\] step=(\d+)", outs2[0])]
     if not steps or steps[0] <= P10_CLI_STEPS[0] or steps[-1] != P10_CLI_STEPS[1]:
         fail(f"resumed QMIX cluster's steps {steps}")
-    log(f"[p10 cli] saved {saved} ({files}); {want}; resumed cluster steps {steps}; clusters "
-        f"{t1 - t0:.1f} s and {t2 - t1:.1f} s")
-    return dict(saved=saved, resumed_steps=steps, walls=[t1 - t0, t2 - t1])
+    log(f"[p10 cli] saved {saved} ({files}); {want}; resumed cluster steps {steps}")
+    return dict(saved=saved, resumed_steps=steps)
 
 
 # phase 11: the validation runner (cleanmarl_tpu_torch/validate.py) over
@@ -3190,8 +2687,7 @@ def check_validate(counters):
     return finite results, its eval the recipe's metric, and launch each
     kernel of its path (MAPPO: K1 once an update, K2, K3 and dw once a
     minibatch on the recurrent actor; recurrent Q: K2, K3 and dw, K2 twice
-    as often; QMIX none). Prints env-steps/s over the block, the eval's
-    seconds, peak device memory and the launches."""
+    as often; QMIX none)."""
     import torch
     from cleanmarl_tpu_torch import validate
     from cleanmarl_tpu_torch.recipes import RECIPES
@@ -3205,14 +2701,12 @@ def check_validate(counters):
         for table in counters:
             for k in table:
                 table[k] = 0
-        t0 = time.perf_counter()
         os.environ["BASELINES_BUDGET"] = str(spb)
         try:
             result, stats = validate.run_config(name, seed=0, device="cuda", out_dir=out_dir)
         finally:
             os.environ.pop("BASELINES_BUDGET")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         launches = {k: v for table in counters for k, v in table.items()}
         main = {k: launches[k] for k in KERNEL_KEYS}
         with open(stats["curve"]) as f:
@@ -3236,12 +2730,10 @@ def check_validate(counters):
             fail(f"[p11] {name}: launches {main}, expected K2 = 2 x K3 = 2 x dw > 0, no K1")
         if any(v for k, v in launches.items() if k not in KERNEL_KEYS):
             fail(f"[p11] {name}: an L2 GRU route was launched: {launches}")
-        log(f"[p11] {name}: one block of {spb} env steps, {stats['env_steps_per_s']:,.1f} "
-            f"env-steps/s ({stats['train_s']:.2f} s), eval of 64 episodes "
-            f"{stats['eval_s']:.2f} s, {metric}={curve[0][metric]:.4f}, peak device memory "
-            f"{stats['peak_mem_gib']:.3f} GiB, launches K1/K2/K3/dw "
-            f"{'/'.join(str(main[k]) for k in KERNEL_KEYS)}; {wall:.1f} s with set-up")
-        out[name] = dict(result=result, stats=stats, launches=launches, wall_s=wall)
+        log(f"[p11] {name}: one block of {spb} env steps, eval of 64 episodes, "
+            f"{metric}={curve[0][metric]:.4f}, launches K1/K2/K3/dw "
+            f"{'/'.join(str(main[k]) for k in KERNEL_KEYS)}")
+        out[name] = dict(result=result, stats=stats, launches=launches)
     return out
 
 
@@ -3271,34 +2763,16 @@ def _p12_checkpointer(work, name, wrote, table, cfg):
     return Checkpointer(os.path.join(work, name, str(wrote)), field_dims=table, seed=cfg.seed)
 
 
-def _p12_size_mib(ckpt):
-    d = os.path.join(ckpt.directory, str(ckpt.latest_step()))
-    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 2**20
-
-
-def _p12_timed(fn):
-    """(fn(), seconds), the card synchronized before and after."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def _p12_block(name, train_block, runner, counters, env_steps):
-    """One driven block (``env_steps`` global env steps) from a restored
-    runner, every kernel count set to 0 just before and read just after,
-    then one more block, timed alone (the first pays what a process's
-    first block pays) → (runner, their measures)."""
+def _p12_block(name, train_block, runner, counters):
+    """One driven block from a restored runner, every kernel count set to
+    0 just before and read just after → (runner, what it saw)."""
     from cleanmarl_tpu_torch.core.driver import to_host
 
     for table in counters:
         for k in table:
             table[k] = 0
     n0 = runner.num_updates
-    (runner, metrics), wall = _p12_timed(lambda: train_block(runner))
+    runner, metrics = train_block(runner)
     metrics = to_host(metrics)
     launches = {k: v for table in counters for k, v in table.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -3308,20 +2782,16 @@ def _p12_block(name, train_block, runner, counters, env_steps):
     wanted = KERNEL_KEYS if name == "mappo" else KERNEL_KEYS[1:]
     if any(launches[k] <= 0 for k in wanted):
         fail(f"[p12] {name}: the block after the restore did not launch {wanted}: {launches}")
-    updates = runner.num_updates - n0
-    (runner, _), next_wall = _p12_timed(lambda: train_block(runner))
-    return runner, dict(wall_s=wall, next_wall_s=next_wall, updates=updates,
-                        launches=launches, env_steps=env_steps, metrics=metrics)
+    return runner, dict(updates=runner.num_updates - n0, launches=launches, metrics=metrics)
 
 
 def _p12_save_body(rank, world, port, work):
     """Each case on this rank of the group: init, training until an update
-    has run (MAPPO: one block), a save by the ranks → its seconds."""
+    has run (MAPPO: one block), a save by the ranks."""
     import torch
     from cleanmarl_tpu_torch.distributed import dp
 
     _join_group(rank, world, port)
-    res = {}
     for name in P12_CASES:
         mod, cfg, table = _p12_case(name, "cuda")
         init, train_block, _, meta = mod.make_train(cfg)
@@ -3334,9 +2804,7 @@ def _p12_save_body(rank, world, port, work):
             runner = out[0] if isinstance(out, tuple) else out
         ckpt = _p12_checkpointer(work, name, world, table, cfg)
         dp.barrier()
-        _, save_s = _p12_timed(lambda: ckpt.save(runner.step, runner))
-        res[name] = dict(save_s=save_s, step=runner.step, local_envs=meta["local_envs"])
-    return res
+        ckpt.save(runner.step, runner)
 
 
 def _p12_restore_body(rank, world, port, work):
@@ -3359,11 +2827,10 @@ def _p12_restore_body(rank, world, port, work):
             dp.rank_seed(cfg.seed, rank)), table)
         ckpt = _p12_checkpointer(work, name, 1, table, cfg)
         dp.barrier()
-        restored, restore_s = _p12_timed(lambda: ckpt.restore(template))
+        restored = ckpt.restore(template)
         torch.save(to_state(restored), _p12_restored_path(work, name, rank))
-        runner, block = _p12_block(name, train_block, restored, counters,
-                                   meta["steps_per_block"])
-        res[name] = dict(restore_s=restore_s, block=block, local_envs=meta["local_envs"],
+        runner, block = _p12_block(name, train_block, restored, counters)
+        res[name] = dict(block=block, local_envs=meta["local_envs"],
                          identical=_p10_identical(_p10_params(runner)))
     return res
 
@@ -3455,7 +2922,7 @@ def _p12_same_gens(a, b):
     return sorted(a) == sorted(b) and all(_p12_same(a[p], b[p]) for p in a)
 
 
-def check_elastic_resume(card, same_world):
+def check_elastic_resume():
     """Phase 12: each of ``P12_CASES`` saved by DP_WORLD gloo ranks and
     restored here at 1 (each rank's file its share of the restored runner,
     partial sums added, rank 0's generator; then one driven block), saved
@@ -3463,8 +2930,7 @@ def check_elastic_resume(card, same_world):
     share of the runner saved, rank 0's generator the saved one and rank
     1's the rule's new stream, the two different; then one block each,
     params identical). Shares are cut by ``_p12_leaves``, not by the
-    ``dp`` code under test. Sizes and seconds beside ``same_world``
-    (phases 9 and 10's restores at the world that wrote them)."""
+    ``dp`` code under test."""
     import shutil
     import tempfile
 
@@ -3477,17 +2943,13 @@ def check_elastic_resume(card, same_world):
     work = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
     out, kept = {}, {}
     try:
-        t0 = time.perf_counter()
-        saved = spawn_ranks("_p12_save_body", work)
-        spawn_s = time.perf_counter() - t0
+        spawn_ranks("_p12_save_body", work)
         for name in P12_CASES:
             mod, cfg, table = _p12_case(name, "cuda")
-            init, train_block, _, meta = mod.make_train(cfg)
-            template = init(torch.Generator("cuda").manual_seed(cfg.seed))
+            init, train_block, _, _ = mod.make_train(cfg)
             ckpt = _p12_checkpointer(work, name, DP_WORLD, table, cfg)
             step = ckpt.latest_step()
-            size2 = _p12_size_mib(ckpt)
-            restored, restore_s = _p12_timed(lambda: ckpt.restore(template))
+            restored = ckpt.restore(init(torch.Generator("cuda").manual_seed(cfg.seed)))
             whole = to_state(restored)
             files = [_p12_load(os.path.join(ckpt.directory, str(step), f"rank{k}.pt"))["runner"]
                      for k in range(DP_WORLD)]
@@ -3495,23 +2957,12 @@ def check_elastic_resume(card, same_world):
             if not _p12_same_gens(_p12_leaves(whole, table)[2], _p12_leaves(files[0], table)[2]):
                 fail(f"[p12] {name} {DP_WORLD} -> 1: the generator is not rank 0's")
             del whole, files
-            runner, block = _p12_block(name, train_block, restored, counters,
-                                       meta["steps_per_block"])
+            runner, block = _p12_block(name, train_block, restored, counters)
             kept[name] = to_state(runner)
-            one = _p12_checkpointer(work, name, 1, table, cfg)
-            _, save1_s = _p12_timed(lambda: one.save(runner.step, runner))
-            out[name] = {"2to1": dict(size_mib=size2, save_s=max(r[name]["save_s"]
-                                                                  for r in saved),
-                                      restore_s=restore_s, step=step, block=block,
-                                      env_steps_per_s=block["env_steps"] / block["wall_s"],
-                                      next_env_steps_per_s=(block["env_steps"]
-                                                            / block["next_wall_s"])),
-                         "1to2": dict(size_mib=_p12_size_mib(one), save_s=save1_s,
-                                      step=runner.step)}
-            del runner, restored, template
-        t1 = time.perf_counter()
+            _p12_checkpointer(work, name, 1, table, cfg).save(runner.step, runner)
+            out[name] = {"2to1": dict(step=step, block=block), "1to2": dict(step=runner.step)}
+            del runner, restored
         restored2 = spawn_ranks("_p12_restore_body", work)
-        spawn2_s = time.perf_counter() - t1
         for name in P12_CASES:
             _, cfg, table = _p12_case(name, "cuda")
             what = f"{name} 1 -> {DP_WORLD}"
@@ -3533,29 +2984,17 @@ def check_elastic_resume(card, same_world):
         ranks = [r[name] for r in restored2]
         if not all(r["identical"] for r in ranks):
             fail(f"[p12] {name}: params differ across the ranks after the 1 -> 2 block")
-        b = ranks[0]["block"]
-        out[name]["1to2"].update(
-            restore_s=max(r["restore_s"] for r in ranks), block=b,
-            local_envs=ranks[0]["local_envs"],
-            env_steps_per_s=b["env_steps"] / max(r["block"]["wall_s"] for r in ranks),
-            next_env_steps_per_s=b["env_steps"] / max(r["block"]["next_wall_s"] for r in ranks),
-            launches_by_rank=[r["block"]["launches"] for r in ranks])
+        out[name]["1to2"].update(block=ranks[0]["block"], local_envs=ranks[0]["local_envs"],
+                                 launches_by_rank=[r["block"]["launches"] for r in ranks])
         for key, (n, m) in (("2to1", (DP_WORLD, 1)), ("1to2", (1, DP_WORLD))):
             o = out[name][key]
-            ref = same_world[name]
-            log(f"[p12] {card}: {name} {n} -> {m} ranks at step {o['step']}: "
-                f"{o['size_mib']:.2f} MiB, save {o['save_s']:.3f} s, restore "
-                f"{o['restore_s']:.3f} s (same world, phase {ref['phase']}: "
-                f"{ref['size_mib']:.2f} MiB, save {ref['save_s']:.3f} s, restore "
-                f"{ref['restore_s']:.3f} s); resumed block {o['block']['env_steps']} env steps "
-                f"in {o['block']['wall_s']:.3f} s ({o['env_steps_per_s']:,.1f} env-steps/s; the "
-                f"next block {o['next_env_steps_per_s']:,.1f}), "
+            log(f"[p12] {name} {n} -> {m} ranks at step {o['step']}: resumed block with "
                 f"{o['block']['updates']} updates, launches "
                 f"{'/'.join(str(o['block']['launches'][k]) for k in KERNEL_KEYS)} (K1/K2/K3/dw)")
-    log(f"[p12] {card}: each rank's file bitwise its share of the runner restored at 1 "
-        f"(2 -> 1), each rank's restored runner bitwise its share of the one saved at 1 "
-        f"(1 -> 2; rank 1's generator the rule's new stream), shares cut independently of dp; "
-        f"params identical across ranks; spawns {spawn_s:.1f} s and {spawn2_s:.1f} s")
+    log("[p12] each rank's file bitwise its share of the runner restored at 1 (2 -> 1), each "
+        "rank's restored runner bitwise its share of the one saved at 1 (1 -> 2; rank 1's "
+        "generator the rule's new stream), shares cut independently of dp; params identical "
+        "across ranks")
     return out
 
 
@@ -3581,10 +3020,6 @@ P13_NOISE = dict(eta=0.01, gamma=0.55, rel_tol=0.05)
 # (c) the two recipes driven with the QMIX paper's optimizer, optax's
 # defaults: the main path (BENCH) and scripts/validate_baselines.py's
 # qmix_rnn_3m (RECQ)
-# (b) rounds that time one MAPPO update of every name in turn: one update's
-# wall spread by 25-35 % within one call on an H100's shared host, and
-# rounds in turn spread the host's drift over every name alike
-P13_ROUNDS = 3
 P13_RECQ = {"qmix_rnn_3m_rmsprop": dict(RECQ["qmix_rnn_3m"], optimizer="rmsprop")}
 
 
@@ -3668,99 +3103,33 @@ def check_optimizers_card_vs_cpu():
     return dict(max_abs_err=out, noisy_sgd_variance_ratio=ratios)
 
 
-def time_optimizers_on_main_path(card):
+def check_optimizers_on_main_path():
     """(b) One MAPPO update (8 epochs x 8 minibatches = 64 optimizer steps
     of actor and critic) at the main path's width for every name, from the
-    same runner and rollout: one warm-up update each (its metrics finite,
-    its count 64), then P13_ROUNDS rounds that time one update of every
-    name in turn; a name's time is the median of its rounds, and its ratio
-    is to Adam's median. Beside it one optimizer step alone (actor +
-    critic, the mean of 10), and its device ops and device ms a step under
-    ``torch.profiler`` over 5 steps after a discarded warm-up step (a lone
-    short profiled call can lose its records).
-    → {name: dict(update_ms, update_walls_ms, ratio, step_ms, step_ops,
-    step_device_ms)}."""
-    import statistics
-
+    same runner and rollout: its metrics finite, its count 64."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
     from cleanmarl_tpu_torch.algos.mappo import make_train
     from cleanmarl_tpu_torch.algos.ppo_common import PPOConfig
     from cleanmarl_tpu_torch.core import optim
     from cleanmarl_tpu_torch.core.driver import to_host
-    from cleanmarl_tpu_torch.core.params import tree_map
 
-    base = PPOConfig(**BENCH, device="cuda")
-    init, _, _, meta = make_train(base)
+    init, _, _, meta = make_train(PPOConfig(**BENCH, device="cuda"))
     runner, traj, h0 = meta["collect_rollout"](init(torch.Generator("cuda").manual_seed(0)))
     params = (runner.actor_params, runner.critic_params)
-    g = torch.Generator("cuda").manual_seed(1)
-    grads = [tree_map(lambda x: 1e-2 * torch.randn(x.shape, generator=g, device="cuda"), p)
-             for p in params]
-    ready = {}
     for name in optim.SUPPORTED:
         cfg = PPOConfig(**dict(BENCH, optimizer=name), device="cuda")
         _, _, _, m = make_train(cfg)
         opts = [optim.make_optimizer(name, lr, cfg.clip_gradients)
                 for lr in (cfg.learning_rate_actor, cfg.learning_rate_critic)]
-        states = [o.init(p) for o, p in zip(opts, params)]
-        r = runner.replace(actor_opt=states[0], critic_opt=states[1])
+        r = runner.replace(actor_opt=opts[0].init(params[0]), critic_opt=opts[1].init(params[1]))
         upd, metrics = m["ppo_update"](r, traj, h0)
         metrics = to_host(metrics)
         bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
         if bad or upd.actor_opt["count"] != cfg.epochs * cfg.num_minibatches:
             fail(f"[p13] {name}: the main-path update gave {bad or upd.actor_opt['count']}")
-        ready[name] = (m, opts, states, r)
         del upd
-    walls = {name: [] for name in ready}
-    for _ in range(P13_ROUNDS):
-        for name, (m, _, _, r) in ready.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, metrics = m["ppo_update"](r, traj, h0)
-            to_host(metrics)
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-    adam_ms = statistics.median(walls["adam"])
-    out = {}
-    for name, (_, opts, states, _) in ready.items():
-        def step():
-            for o, gr, st, p in zip(opts, grads, states, params):
-                o.update(gr, st, p)
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e2
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            step()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(5):
-                step()
-            torch.cuda.synchronize()
-            prof.step()
-        kernels = device_kernels(prof)
-        ops = sum(c for _, c in kernels.values()) / 5
-        if ops == 0:
-            fail(f"[p13] {name}: the profiler recorded no device op in 5 optimizer steps")
-        update_ms = statistics.median(walls[name])
-        out[name] = dict(update_ms=update_ms, update_walls_ms=walls[name],
-                         ratio=update_ms / adam_ms, step_ms=step_ms, step_ops=ops,
-                         step_device_ms=sum(sec for sec, _ in kernels.values()) * 1e3 / 5)
-    ready.clear()
-    log(f"[p13] {card}: one MAPPO update at the main path's width (64 optimizer steps of actor "
-        f"and critic), the median wall ms of {P13_ROUNDS} rounds (every name in turn) and its "
-        f"ratio to adam's; one optimizer step alone (actor + critic): wall ms, device ops, "
-        f"device ms:")
-    for name, o in out.items():
-        log(f"[p13]   {name:28s} update {o['update_ms']:9.3f} ms  x{o['ratio']:.3f}   step "
-            f"{o['step_ms']:7.3f} ms {o['step_ops']:5.0f} ops {o['step_device_ms']:7.4f} ms  "
-            f"(walls {', '.join(f'{w:.3f}' for w in o['update_walls_ms'])})")
-    return out
+    log(f"[p13] {len(optim.SUPPORTED)} optimizers: one MAPPO update each at the main path's "
+        f"width, metrics finite, {BENCH['epochs'] * BENCH['num_minibatches']} optimizer steps")
 
 
 def _reset(counters):
@@ -3771,7 +3140,7 @@ def _reset(counters):
 
 def p13_drive_mappo(counters, optimizer):
     """(c) The main path with ``optimizer``: one warm-up block (with init),
-    one timed block, one eval; every count set to 0 before init and read
+    one driven block, one eval; every count set to 0 before init and read
     after eval: K1 once per PPO update, K2, K3 and dw once per minibatch
     (each ``num_updates``)."""
     import torch
@@ -3780,17 +3149,13 @@ def p13_drive_mappo(counters, optimizer):
     from cleanmarl_tpu_torch.core.driver import to_host
 
     cfg = PPOConfig(**dict(BENCH, optimizer=optimizer), device="cuda")
-    init, train_block, eval_fn, meta = make_train(cfg)
-    torch.cuda.synchronize()
+    init, train_block, eval_fn, _ = make_train(cfg)
     _reset(counters)
-    t0 = time.perf_counter()
     runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
     runner, metrics = train_block(runner)
     warm = to_host(metrics)
-    t1 = time.perf_counter()
     runner, metrics = train_block(runner)
     metrics = to_host(metrics)
-    t2 = time.perf_counter()
     evals = to_host(eval_fn(runner.actor_params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
     launches = {k: v for table in counters for k, v in table.items()}
@@ -3803,18 +3168,16 @@ def p13_drive_mappo(counters, optimizer):
     for k, v in {**warm, **metrics, **evals}.items():
         if not math.isfinite(v):
             fail(f"[p13] mappo {optimizer}: non-finite metric {k}={v}")
-    sps = meta["steps_per_block"] / (t2 - t1)
-    log(f"[p13] mappo {optimizer}: warm-up block (incl. init) {t1 - t0:.3f} s, timed block "
-        f"{t2 - t1:.3f} s, env-steps/s {sps:.1f}; launches {launches} = K1 once per PPO "
-        f"update ({n_ppo}), K2/K3/dw once per minibatch ({runner.num_updates}); last block "
+    log(f"[p13] mappo {optimizer}: launches {launches} = K1 once per PPO update ({n_ppo}), "
+        f"K2/K3/dw once per minibatch ({runner.num_updates}); last block "
         f"{json.dumps(metrics, sort_keys=True)}; eval {json.dumps(evals, sort_keys=True)}")
-    return dict(env_steps_per_s=sps, block_s=t2 - t1, launches=launches, metrics=metrics,
-                eval=evals, ppo_updates=n_ppo, num_updates=runner.num_updates)
+    return dict(launches=launches, metrics=metrics, eval=evals, ppo_updates=n_ppo,
+                num_updates=runner.num_updates)
 
 
 def p13_drive_recq(counters, optimizer):
     """(c) qmix_rnn_3m with ``optimizer``: blocks (the first with init)
-    until the updates have started, then one timed block and one eval,
+    until the updates have started, then one driven block and one eval,
     every count set to 0 before init and read after eval: K2 twice per
     update (target and online streams), K3 and dw once, no K1."""
     import torch
@@ -3822,10 +3185,8 @@ def p13_drive_recq(counters, optimizer):
 
     name = f"qmix_rnn_3m_{optimizer}"
     table = {name: dict(RECQ["qmix_rnn_3m"], optimizer=optimizer)}
-    cfg, (init, train_block, eval_fn, meta) = _recq(name, "cuda", table)
-    torch.cuda.synchronize()
+    cfg, (init, train_block, eval_fn, _) = _recq(name, "cuda", table)
     _reset(counters)
-    t0 = time.perf_counter()
     runner = init(torch.Generator("cuda").manual_seed(cfg.seed))
     seen, n_warm = [], 0
     while runner.num_updates == 0:
@@ -3834,39 +3195,34 @@ def p13_drive_recq(counters, optimizer):
         n_warm += 1
         if n_warm > 6:
             fail(f"[p13] {name}: no update after {n_warm} warm-up blocks")
-    t1 = time.perf_counter()
     n0 = runner.num_updates
     runner, metrics = train_block(runner)
     seen.append(to_host(metrics))
-    t2 = time.perf_counter()
     evals = to_host(eval_fn(runner.params, torch.Generator("cuda").manual_seed(1)))
     torch.cuda.synchronize()
     launches = {k: v for table in counters for k, v in table.items()}
     n = runner.num_updates
     want = dict(dict.fromkeys(launches, 0), gru_seq_fwd=2 * n, gru_seq_bwd=n, gru_seq_dw=n)
     if launches != want or n == n0:
-        fail(f"[p13] {name}: launches {launches} after {n} updates ({n - n0} timed), "
+        fail(f"[p13] {name}: launches {launches} after {n} updates ({n - n0} driven), "
              f"expected {want}")
     for k, v in [kv for m in seen for kv in m.items()] + list(evals.items()):
         if not math.isfinite(v):
             fail(f"[p13] {name}: non-finite metric {k}={v}")
     if runner.opt_state["count"] != n:
         fail(f"[p13] {name}: optimizer count {runner.opt_state['count']} after {n} updates")
-    sps = meta["steps_per_block"] / (t2 - t1)
-    log(f"[p13] {name}: {n_warm} warm-up block(s) (incl. init) {t1 - t0:.3f} s, timed block "
-        f"{t2 - t1:.3f} s with {n - n0} updates, env-steps/s {sps:.1f}; launches {launches} = "
-        f"K2 2x, K3 and dw 1x the {n} updates; last block "
+    log(f"[p13] {name}: {n_warm} warm-up block(s) (incl. init), a driven block with {n - n0} "
+        f"updates; launches {launches} = K2 2x, K3 and dw 1x the {n} updates; last block "
         f"{json.dumps(seen[-1], sort_keys=True)}; eval {json.dumps(evals, sort_keys=True)}")
-    return dict(env_steps_per_s=sps, block_s=t2 - t1, updates=n - n0, num_updates=n,
-                launches=launches, metrics=seen[-1], eval=evals)
+    return dict(updates=n - n0, num_updates=n, launches=launches, metrics=seen[-1],
+                eval=evals)
 
 
-def check_optimizers(card, counters):
-    """Phase 13: (a) card vs CPU for every name, (b) each name's cost on
+def check_optimizers(counters):
+    """Phase 13: (a) card vs CPU for every name, (b) each name's update on
     the main path, (c) the main path and qmix_rnn_3m driven with rmsprop,
-    each with one update card vs CPU, and with adam right after it for the
-    comparison in the same place of the run, (d) a bitwise rmsprop
-    resume."""
+    each with one update card vs CPU, and with adam right after it, (d) a
+    bitwise rmsprop resume."""
     lap = time.perf_counter()
 
     def lap_s():
@@ -3875,25 +3231,20 @@ def check_optimizers(card, counters):
         return f"{dt:.1f} s"
     card_vs_cpu = check_optimizers_card_vs_cpu()
     log(f"[p13] (a) in {lap_s()}")
-    cost = time_optimizers_on_main_path(card)
+    check_optimizers_on_main_path()
     log(f"[p13] (b) in {lap_s()}")
     update_err = {"mappo_rmsprop": check_update_against_cpu("rmsprop", "p13"),
                   **check_recq_updates_against_cpu(P13_RECQ, "p13")}
     driven = {f"{path}_{opt}": drive(counters, opt)
               for path, drive in (("mappo", p13_drive_mappo), ("qmix_rnn_3m", p13_drive_recq))
               for opt in ("rmsprop", "adam")}
-    for path in ("mappo", "qmix_rnn_3m"):
-        a, b = driven[f"{path}_rmsprop"], driven[f"{path}_adam"]
-        log(f"[p13] {card}: {path} rmsprop {a['env_steps_per_s']:,.1f} env-steps/s against "
-            f"adam {b['env_steps_per_s']:,.1f} driven right after it "
-            f"(x{a['env_steps_per_s'] / b['env_steps_per_s']:.3f})")
     log(f"[p13] (c) in {lap_s()}")
     resume = check_resume("rmsprop", "p13")
     if not resume["bitwise"]:
         fail(f"[p13] the rmsprop resume is not bitwise: {resume['differ']}")
     log(f"[p13] (d) in {lap_s()}")
-    return dict(card_vs_cpu=card_vs_cpu, main_path_cost=cost, update_max_abs_err=update_err,
-                driven=driven, resume=resume)
+    return dict(card_vs_cpu=card_vs_cpu, update_max_abs_err=update_err, driven=driven,
+                resume=resume)
 
 
 def check_dp_ranks(world):
@@ -3903,7 +3254,7 @@ def check_dp_ranks(world):
     with ``--use_mesh`` (one rank per visible card)."""
     global DP_WORLD
     DP_WORLD = world
-    check_offpolicy_dp(None)
+    check_offpolicy_dp()
     for mod, batch in (("qmix_rnn", "32"), ("facmac", "64")):
         t0 = time.perf_counter()
         p = subprocess.run([sys.executable, "-m", f"cleanmarl_tpu_torch.algos.{mod}",
@@ -3967,7 +3318,6 @@ def main():
     results = {}
     check_returns(results)
     gru_times = check_gru(results)
-    mma_tflops = mma_ceiling()
     check_rnn_seq_apply()
     rq_routes = check_recurrent_q_shapes(results)
     check_paths7_shapes(results)
@@ -4012,10 +3362,8 @@ def main():
         nonlocal lap
         lap, dt = time.perf_counter(), time.perf_counter() - lap
         return f"{dt:.1f} s"
-    env_steps = {name: profile_env_step(*args, 64) for name, args in (
-        ("pursuit", ("pursuit", "pursuit_v4")), ("lbf", ("lbf", LBF_MAP)))}
     check_updates_against_cpu(PATHS8, "paths8")
-    log(f"[paths8] env steps profiled and updates held card vs CPU in {lap_s()}")
+    log(f"[paths8] updates held card vs CPU in {lap_s()}")
     paths8 = {}
     for name in PATHS8_DRIVEN:
         paths8[name] = drive_recipe(name, counters)
@@ -4040,7 +3388,7 @@ def main():
 
     # phase 10: data-parallel QMIX, VDN, recurrent Q, MADDPG and FACMAC
     t10 = lap = time.perf_counter()
-    offpolicy_dp = check_offpolicy_dp(recq["qmix_rnn_3m"])
+    offpolicy_dp = check_offpolicy_dp()
     log(f"[p10] two ranks (commit, updates, driven paths) in {lap_s()}")
     offpolicy_resume = check_offpolicy_resume()
     log(f"[p10 resume] in {lap_s()}")
@@ -4054,13 +3402,12 @@ def main():
 
     # phase 12: restore a checkpoint at another world size
     t12 = time.perf_counter()
-    elastic = check_elastic_resume(card, {"mappo": dict(resume, phase=9),
-                                          "qmix_rnn_3m": dict(offpolicy_resume, phase=10)})
+    elastic = check_elastic_resume()
     log(f"[p12] phase 12 in {time.perf_counter() - t12:.1f} s")
 
     # phase 13: every optax optimizer the JAX package trains with
     t13 = time.perf_counter()
-    optimizers = check_optimizers(card, counters)
+    optimizers = check_optimizers(counters)
     log(f"[p13] phase 13 in {time.perf_counter() - t13:.1f} s")
 
     by_path = {"mappo": main_path["launches"],
@@ -4082,9 +3429,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                            kernels=kernels, gru_times=gru_times, main_path=main_path,
-                           mma_tf32_tflops=mma_tflops, offpolicy=offpolicy,
-                           recurrent_q_routes=rq_routes, recurrent_q=recq, paths7=paths7,
-                           env_steps=env_steps, paths8=paths8, host_route=host_route,
+                           offpolicy=offpolicy, recurrent_q_routes=rq_routes,
+                           recurrent_q=recq, paths7=paths7, paths8=paths8, host_route=host_route,
                            collisions=collisions, resume=resume,
                            data_parallel=data_parallel, dp_cli=dp_cli,
                            offpolicy_dp=offpolicy_dp, offpolicy_resume=offpolicy_resume,

@@ -93,7 +93,7 @@
 // gi[t] there earlier in the same step, no thread reads another's, and no
 // step reads gi[t] again. The dw kernel reads dgi and never gi.
 //
-// Bounds (T = 60, M = 3072, H = 128; chip_smoke.py:gru_bounds): the
+// Bounds (T = 60, M = 3072, H = 128; benchmark/yardstick.py:gru_least_s): the
 // recurrence does 2 * 2*T*M*H*3H FLOP against 853 MB, the weight gradient
 // 2*T*M*H*3H against 378 MB (h0, h_seq[:T-1], keep[:T-1], dgi's first 2H
 // columns, dghn, dwh, dbh); as 3xTF32 at 495 TFLOP/s both are bound by

@@ -9,7 +9,7 @@
 //     h2 = (1 - z) * n + z * h               emitted as h_seq[t] (pre-mask)
 //     carry <- keep[t] * h2                  h_final is the last carry
 //
-// Bound (T = 60, M = 3072, H = 128; chip_smoke.py:gru_bounds): 2*T*M*H*3H
+// Bound (T = 60, M = 3072, H = 128; benchmark/yardstick.py:gru_least_s): 2*T*M*H*3H
 // = 18.1 GFLOP against 0.38 GB (gi, h_seq and the rest, each once). As
 // float32 FMA that is 0.274 ms of operations; as 3xTF32 on the tensor
 // cores (three TF32 products per float32 product) 0.113 ms of operations

@@ -121,42 +121,6 @@ extern "C" int lambda_returns_launch(
   return (int)cudaGetLastError();
 }
 
-// Yardstick only, never called by the port: the one-thread-per-column
-// kernel with the loop over T inside the thread and full (T, B) inputs,
-// which the kernel above replaced. chip_smoke.py times it beside the new
-// kernel in the same run.
-__global__ void lambda_returns_column_kernel(
-    const float* __restrict__ r, const uint8_t* __restrict__ e,
-    const float* __restrict__ v, const float* __restrict__ boot,
-    float* __restrict__ g_out, float* __restrict__ a_out,
-    int T, long long B, float gamma, float lam) {
-  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  float g = boot[col];
-  float v_next = g;
-  for (int t = T - 1; t >= 0; --t) {
-    const long long i = (long long)t * B + col;
-    const float vt = v[i];
-    const float not_ended = 1.0f - (float)e[i];
-    g = r[i] + gamma * not_ended * (lam * g + (1.0f - lam) * v_next);
-    g_out[i] = g;
-    a_out[i] = g - vt;
-    v_next = vt;
-  }
-}
-
-extern "C" int lambda_returns_column_launch(
-    const float* r, const uint8_t* e, const float* v, const float* boot,
-    float* g_out, float* a_out, int T, long long B, float gamma, float lam,
-    void* stream) {
-  if (T <= 0 || B <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (B + threads - 1) / threads;
-  lambda_returns_column_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      r, e, v, boot, g_out, a_out, T, B, gamma, lam);
-  return (int)cudaGetLastError();
-}
-
 extern "C" const char* lambda_returns_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

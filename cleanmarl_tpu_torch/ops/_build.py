@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("lambda_returns", "gru_seq_fwd", "gru_seq_bwd", "mma_rate")
+SOURCES = ("lambda_returns", "gru_seq_fwd", "gru_seq_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
