@@ -12,7 +12,11 @@ function.
   ``rnn_seq_eval_next`` run it over a time-major sequence, on the CUDA
   kernels or as a scan (``resolve_gru_impl``);
 - ``mixer`` is the QMIX hypernetwork mixer, ``soft_update`` Polyak
-  averaging of a target tree.
+  averaging of a target tree;
+- every bias is added, and every hidden ReLU applied, in place over the
+  layer's own fresh product (``_affine``, ``_dense_relu``): one buffer a
+  layer where the out-of-place forms held two, with the same bits and
+  gradients.
 
 Initialization is orthogonal (QR of a Gaussian, per gate block for the
 GRU) for kernels and zeros for biases, drawn from a ``torch.Generator``.
@@ -20,7 +24,7 @@ GRU) for kernels and zeros for biases, drawn from a ``torch.Generator``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
@@ -63,8 +67,25 @@ def matmul(x, w, dtype=None):
     return x.to(dtype).float() @ w.to(dtype).float()
 
 
+def _affine(x, w, b, dtype=None):
+    """matmul(x, w, dtype) + b, the bias added in place over the fresh
+    float32 product, so that the product and the sum are never live at
+    once. The bits and the gradients are those of ``p + b``: matmul's
+    backward saves its operands, not its output, and add's saves nothing.
+    Every bias here is (out,); one that would broadcast the product to a
+    larger shape raises."""
+    return matmul(x, w, dtype).add_(b)
+
+
 def dense(params, x, dtype=None):
-    return matmul(x, params["w"], dtype) + params["b"]
+    return _affine(x, params["w"], params["b"], dtype)
+
+
+def _dense_relu(params, x, dtype=None):
+    """relu(dense(x)), the relu written over dense's own fresh sum: the
+    bits and the gradients are those of ``torch.relu``, whose backward
+    reads its output, and the layer holds one buffer where it held two."""
+    return torch.relu_(dense(params, x, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +103,9 @@ def mlp_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
     return {"layers": layers, "head": head}
 
 
-def mlp_apply(params, x, activation: Callable = torch.relu, dtype=None):
+def mlp_apply(params, x, dtype=None):
     for layer in params["layers"]:
-        x = activation(dense(layer, x, dtype))
+        x = _dense_relu(layer, x, dtype)
     return dense(params["head"], x, dtype)
 
 
@@ -112,7 +133,7 @@ def gru_init(generator, in_dim: int, hidden_dim: int, device="cpu"):
 
 def gru_apply_pre(params, h, gi, dtype=None):
     """GRU step from a precomputed input projection gi = x @ wi + bi."""
-    gh = matmul(h, params["wh"], dtype) + params["bh"]
+    gh = _affine(h, params["wh"], params["bh"], dtype)
     ir, iz, in_ = torch.chunk(gi, 3, dim=-1)
     hr, hz, hn = torch.chunk(gh, 3, dim=-1)
     r = torch.sigmoid(ir + hr)
@@ -122,7 +143,7 @@ def gru_apply_pre(params, h, gi, dtype=None):
 
 
 def gru_apply(params, h, x):
-    return gru_apply_pre(params, h, x @ params["wi"] + params["bi"])
+    return gru_apply_pre(params, h, _affine(x, params["wi"], params["bi"]))
 
 
 # ---------------------------------------------------------------------------
@@ -141,15 +162,15 @@ def rnn_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
 
 def rnn_apply(params, h, x):
     """Returns (h', out). x (..., in_dim), h (..., hidden_dim)."""
-    z = torch.relu(dense(params["fc1"], x))
+    z = _dense_relu(params["fc1"], x)
     h2 = gru_apply(params["gru"], h, z)
     return h2, dense(params["head"], h2)
 
 
 def gru_input_proj(params, x, dtype=None):
     """relu(fc1(x)) @ wi + bi over any leading dims → (..., 3H)."""
-    z = torch.relu(dense(params["fc1"], x, dtype))
-    return matmul(z, params["gru"]["wi"], dtype) + params["gru"]["bi"]
+    z = _dense_relu(params["fc1"], x, dtype)
+    return _affine(z, params["gru"]["wi"], params["gru"]["bi"], dtype)
 
 
 def _gru_seq_kernel(params, h0, x_seq, reset_seq):

@@ -622,6 +622,126 @@ def test_consuming_gi_cuts_the_backward_peak_by_gi_on_card():
 
 
 @pytest.mark.cuda
+def test_bias_in_place_cuts_the_forward_peak_by_the_product_on_card():
+    """``_gru_seq_kernel`` at the 3m update's shape (T=60, 1024 envs x 3
+    agents, H=128, obs 33), wi's bias added in place over its product
+    (and fc1's relu over fc1's sum) against the out-of-place forms: the
+    input projection's peak (stats reset
+    before each forward) falls by the product's bytes, 283,115,520 (135
+    whole 2 MiB blocks); the whole forward's, whose peak then moves to
+    the GRU launch, by that less what the launch allocates beside gi
+    (h_seq, h_final; keep just before it). The outputs and every gradient
+    are bitwise equal, and the backward still writes dgi over gi. One
+    forward and backward run first: the first builds and loads the
+    kernels and takes autograd's thread's cuBLAS workspace."""
+    _card()
+    from cleanmarl_tpu_torch.core import networks as nets
+    from cleanmarl_tpu_torch.core import tracing
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+
+    T, B, n, H, n_in = 60, 1024, 3, 128, 33
+    M = B * n
+    g = torch.Generator("cuda").manual_seed(0)
+    params = nets.rnn_init(g, n_in, H, 9, final_gain=0.01, device="cuda")
+    params = {"fc1": params["fc1"], "gru": params["gru"]}
+    for p in tree_leaves(params):
+        p.add_(0.1 * torch.randn(p.shape, generator=g, device="cuda"))
+    x = torch.randn(T, B, n, n_in, generator=g, device="cuda")
+    h0 = 0.5 * torch.randn(B, n, H, generator=g, device="cuda")
+    reset = torch.rand(T, B, generator=g, device="cuda") < 0.05
+
+    def out_of_place(x, w, b, dtype=None):
+        return nets.matmul(x, w, dtype) + b
+
+    def relu_out_of_place(p, x, dtype=None):
+        return torch.relu(nets.dense(p, x, dtype))
+
+    def peak_of(f):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = f()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def run(in_place):
+        torch.cuda.empty_cache()
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        hx = h0.clone().requires_grad_(True)
+        ps = tree_unflatten(params, leaves)
+        with pytest.MonkeyPatch.context() as mp:
+            if not in_place:
+                mp.setattr(nets, "_affine", out_of_place)
+                mp.setattr(nets, "_dense_relu", relu_out_of_place)
+            gi, proj = peak_of(lambda: nets.gru_input_proj(ps, x))
+            del gi
+            (hf, hs), fwd = peak_of(lambda: nets._gru_seq_kernel(ps, hx, x, reset))
+            with tracing.recording() as rec:
+                grads = torch.autograd.grad((hs * hs).sum() + hf.sum(), leaves + [hx])
+        return [hf.detach(), hs.detach(), *grads], proj, fwd, rec.counter_values()
+
+    run(True)
+    got, proj_in, fwd_in, counts = run(True)
+    want, proj_out, fwd_out, counts_out = run(False)
+    product = T * M * 3 * H * 4
+    launch = (T * M * H + M * H + T * M) * 4
+    assert product == 283_115_520 and product % 2**21 == 0
+    assert proj_out - proj_in == product, (proj_out, proj_in)
+    assert fwd_out - fwd_in >= product - launch, (fwd_out, fwd_in)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert counts == counts_out == {"gru.bwd_calls": 1, "gru.bwd_in_place": 1}
+
+
+@pytest.mark.cuda
+def test_relu_in_place_cuts_the_critics_peak_by_a_layer_on_card():
+    """The 3m update's critic values over the whole rollout (``ppo.returns``,
+    no grad: T=60, 8192 envs, state 48, two hidden layers of 128): with
+    each relu written over its layer's fresh sum, two (T, E, 128) buffers
+    are live at once where three were (the layer's input, its sum and the
+    relu's output), so the peak falls by one, 251,658,240 bytes (120 whole
+    2 MiB blocks); the values are bitwise equal. With grad, on a minibatch
+    (1024 envs), the values and every gradient are bitwise equal."""
+    _card()
+    from cleanmarl_tpu_torch.core import networks as nets
+    from cleanmarl_tpu_torch.core.params import tree_leaves, tree_unflatten
+
+    T, E, S, H = 60, 8192, 48, 128
+    g = torch.Generator("cuda").manual_seed(1)
+    params = nets.mlp_init(g, S, H, 1, num_layers=1, device="cuda")
+    for p in tree_leaves(params):
+        p.add_(0.1 * torch.randn(p.shape, generator=g, device="cuda"))
+    state = torch.randn(T, E, S, generator=g, device="cuda")
+
+    def run(in_place):
+        torch.cuda.empty_cache()
+        with pytest.MonkeyPatch.context() as mp:
+            if not in_place:
+                mp.setattr(nets, "_dense_relu",
+                           lambda p, x, dtype=None: torch.relu(nets.dense(p, x, dtype)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.no_grad():
+                v = nets.mlp_apply(params, state)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            vg = nets.mlp_apply(tree_unflatten(params, leaves), state[:, :1024])
+            grads = torch.autograd.grad(vg.square().sum(), leaves)
+        return [v, vg.detach(), *grads], peak
+
+    run(True)
+    got, peak_in = run(True)
+    want, peak_out = run(False)
+    layer = T * E * H * 4
+    assert layer == 251_658_240 and layer % 2**21 == 0
+    assert peak_out - peak_in == layer, (peak_out, peak_in)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,M,H", [(60, 3072, 128), (13, 77, 256)])
 def test_gru_seq_dw_is_bitwise_deterministic_on_card(T, M, H):
     _card()
