@@ -67,6 +67,7 @@ from cleanmarl_tpu_torch.core.optim import make_optimizer
 from cleanmarl_tpu_torch.core.params import tree_map, value_and_grad
 from cleanmarl_tpu_torch.core.rewards import masked_count, standardize
 from cleanmarl_tpu_torch.core.schedules import linear_schedule
+from cleanmarl_tpu_torch.core.tracing import count, span
 from cleanmarl_tpu_torch.distributed import dp
 from cleanmarl_tpu_torch.envs import registry
 from cleanmarl_tpu_torch.envs.external import as_vec
@@ -182,7 +183,8 @@ def check_config(cfg: RecurrentQConfig) -> None:
 def make_train(cfg: RecurrentQConfig, env=None):
     """→ (init, train_block, eval_fn, meta). ``meta["update"]`` (episode
     replay) and ``meta["update_seq"]`` (sequence replay) are one gradient
-    step on an already sampled batch."""
+    step on an already sampled batch; ``meta["train_iter"]`` is one
+    iteration, ``meta["act_iter"]`` followed by ``meta["update_iter"]``."""
     check_config(cfg)
     device = resolve_device(cfg.device)
     use_seq = cfg.replay == "sequence"
@@ -246,7 +248,8 @@ def make_train(cfg: RecurrentQConfig, env=None):
         return tree_map(lambda x: x.movedim(0, 1).contiguous(), batch)
 
     def step_params(params, opt_state, loss_fn):
-        loss, _, grads = value_and_grad(loss_fn, params)
+        with span("rq.td_grad"):
+            loss, _, grads = value_and_grad(loss_fn, params)
         grads, (loss,) = dp.all_reduce_sum([grads, [loss]])
         with torch.no_grad():
             gnorm = nets.global_norm(grads)
@@ -256,27 +259,32 @@ def make_train(cfg: RecurrentQConfig, env=None):
     def update(params, target_params, opt_state, batch, mask):
         """One TD step on sampled episodes ``batch`` (B, T_max, ...) with
         step ``mask`` (B, T_max), this rank's rows of the sampled batch →
-        (params, opt_state, loss, grad norm)."""
-        with torch.no_grad():
-            tm = time_major(batch)
-            mask_tm = mask.t()
-            reward, count = masked_count(tm["reward"], mask_tm, cfg.normalize_reward)
-            h0 = nets.rnn_initial_state(tm["obs"].shape[1:3], H, device)
-            q_next = nets.rnn_seq_eval_next(target_params["q"], h0, tm["obs"],
-                                            tm["next_obs"], dtype=mm_dtype, impl=gru_impl)
-            q_next_max = nets.masked_q(q_next, tm["next_avail"]).max(dim=-1).values
-            team_next = mix(target_params, q_next_max, tm["next_state"])   # (T, B)
-            target = reward + cfg.gamma * (1.0 - tm["done"].float()) * team_next
+        (params, opt_state, loss, grad norm). Counts the sampled steps
+        (``rq.valid_steps``, on the device) and the padded rows they lie
+        in (``rq.padded_steps``)."""
+        with span("rq.update"):
+            count("rq.valid_steps", mask)
+            count("rq.padded_steps", mask.numel())
+            with torch.no_grad(), span("rq.target"):
+                tm = time_major(batch)
+                mask_tm = mask.t()
+                reward, n_valid = masked_count(tm["reward"], mask_tm, cfg.normalize_reward)
+                h0 = nets.rnn_initial_state(tm["obs"].shape[1:3], H, device)
+                q_next = nets.rnn_seq_eval_next(target_params["q"], h0, tm["obs"],
+                                                tm["next_obs"], dtype=mm_dtype, impl=gru_impl)
+                q_next_max = nets.masked_q(q_next, tm["next_avail"]).max(dim=-1).values
+                team_next = mix(target_params, q_next_max, tm["next_state"])   # (T, B)
+                target = reward + cfg.gamma * (1.0 - tm["done"].float()) * team_next
 
-        def loss_fn(p):
-            _, q = nets.rnn_seq_apply(p["q"], h0, tm["obs"], tbptt=cfg.tbptt,
-                                      dtype=mm_dtype, impl=gru_impl)
-            q_taken = torch.gather(q, -1, tm["action"][..., None])[..., 0]   # (T, B, n)
-            team = mix(p, q_taken, tm["state"])
-            err = torch.square(target - team) * mask_tm
-            return torch.sum(err) / count, ()
+            def loss_fn(p):
+                _, q = nets.rnn_seq_apply(p["q"], h0, tm["obs"], tbptt=cfg.tbptt,
+                                          dtype=mm_dtype, impl=gru_impl)
+                q_taken = torch.gather(q, -1, tm["action"][..., None])[..., 0]  # (T, B, n)
+                team = mix(p, q_taken, tm["state"])
+                err = torch.square(target - team) * mask_tm
+                return torch.sum(err) / n_valid, ()
 
-        return step_params(params, opt_state, loss_fn)
+            return step_params(params, opt_state, loss_fn)
 
     def update_seq(params, target_params, opt_state, batch):
         """One TD step on sampled chunks ``batch`` (B, L, ...), this rank's
@@ -285,42 +293,44 @@ def make_train(cfg: RecurrentQConfig, env=None):
         gradient, the VDN TD loss on the rest → (params, opt_state, loss,
         grad norm)."""
         bi = cfg.burn_in
-        with torch.no_grad():
-            tm = time_major(batch)
-            reward = tm["reward"]
-            if cfg.normalize_reward:
-                reward = standardize(reward)
-            h_t = h_u = nets.rnn_initial_state(tm["obs"].shape[1:3], H, device)
-            if bi:
-                # target stream on next_obs, online stream on obs; on the
-                # kernel route each is one K2 forward, read at h_final
-                h_t = nets.rnn_seq_apply(target_params["q"], h_t, tm["next_obs"][:bi],
-                                         dtype=mm_dtype, impl=gru_impl)[0]
-                h_u = nets.rnn_seq_apply(params["q"], h_u, tm["obs"][:bi],
-                                         dtype=mm_dtype, impl=gru_impl)[0]
-            _, q_next = nets.rnn_seq_apply(target_params["q"], h_t, tm["next_obs"][bi:],
-                                           dtype=mm_dtype, impl=gru_impl)
-            q_next_max = nets.masked_q(q_next, tm["next_avail"][bi:]).max(dim=-1).values
-            done = tm["done"][bi:].float()
-            target = reward[bi:] + cfg.gamma * (1.0 - done) * q_next_max.sum(dim=-1)
+        with span("rq.update"):
+            with torch.no_grad(), span("rq.target"):
+                tm = time_major(batch)
+                reward = tm["reward"]
+                if cfg.normalize_reward:
+                    reward = standardize(reward)
+                h_t = h_u = nets.rnn_initial_state(tm["obs"].shape[1:3], H, device)
+                if bi:
+                    # target stream on next_obs, online stream on obs; on the
+                    # kernel route each is one K2 forward, read at h_final
+                    h_t = nets.rnn_seq_apply(target_params["q"], h_t, tm["next_obs"][:bi],
+                                             dtype=mm_dtype, impl=gru_impl)[0]
+                    h_u = nets.rnn_seq_apply(params["q"], h_u, tm["obs"][:bi],
+                                             dtype=mm_dtype, impl=gru_impl)[0]
+                _, q_next = nets.rnn_seq_apply(target_params["q"], h_t, tm["next_obs"][bi:],
+                                               dtype=mm_dtype, impl=gru_impl)
+                q_next_max = nets.masked_q(q_next, tm["next_avail"][bi:]).max(dim=-1).values
+                done = tm["done"][bi:].float()
+                target = reward[bi:] + cfg.gamma * (1.0 - done) * q_next_max.sum(dim=-1)
 
-        def loss_fn(p):
-            _, q = nets.rnn_seq_apply(p["q"], h_u, tm["obs"][bi:], dtype=mm_dtype,
-                                      impl=gru_impl)
-            q_taken = torch.gather(q, -1, tm["action"][bi:][..., None])[..., 0]
-            return dp.mean_share(torch.square(target - q_taken.sum(dim=-1))), ()
+            def loss_fn(p):
+                _, q = nets.rnn_seq_apply(p["q"], h_u, tm["obs"][bi:], dtype=mm_dtype,
+                                          impl=gru_impl)
+                q_taken = torch.gather(q, -1, tm["action"][bi:][..., None])[..., 0]
+                return dp.mean_share(torch.square(target - q_taken.sum(dim=-1))), ()
 
-        return step_params(params, opt_state, loss_fn)
+            return step_params(params, opt_state, loss_fn)
 
-    def train_iter(runner: RecQRunnerState):
-        """One env step of the batch, its record, and the updates and
-        target step it makes due. → (runner, epsilon)."""
+    def act_iter(runner: RecQRunnerState):
+        """One env step of the batch and its record in the ring → (runner,
+        episodes ended, epsilon)."""
         gen = runner.generator
         epsilon = linear_schedule(cfg.start_e, cfg.end_e, eps_duration,
                                   runner.step * cfg.num_envs)
         with torch.no_grad():
-            h2, q = nets.rnn_apply(runner.params["q"], runner.h, runner.obs)
-            actions = eps_greedy(gen, q, runner.avail, epsilon)
+            with span("rq.act"):
+                h2, q = nets.rnn_apply(runner.params["q"], runner.h, runner.obs)
+                actions = eps_greedy(gen, q, runner.avail, epsilon)
             env_state, ts2, final = vec.step(runner.env_state, actions, gen)
             ended = torch.logical_or(ts2.done, ts2.truncated)
             h2 = torch.where(ended[:, None, None], 0.0, h2)
@@ -335,8 +345,16 @@ def make_train(cfg: RecurrentQConfig, env=None):
                 n_ended = runner.acc.add_step(runner.ring, record, ended)      # host sync
             stats = runner.stats.step(
                 ts2.reward, ended, ts2.info.get("battle_won", torch.zeros_like(ts2.reward)))
+        runner = runner.replace(env_state=env_state, obs=ts2.obs, state=ts2.state,
+                                avail=ts2.avail, h=h2, stats=stats, step=runner.step + 1,
+                                episodes=runner.episodes + n_ended)
+        return runner, n_ended, epsilon
 
-        step, episodes = runner.step + 1, runner.episodes + n_ended
+    def update_iter(runner: RecQRunnerState, n_ended: int) -> RecQRunnerState:
+        """The updates that ``act_iter``'s step (which ended ``n_ended``
+        episodes) makes due, the debt, and the target step → runner."""
+        gen = runner.generator
+        step, episodes = runner.step, runner.episodes
         due = 0
         if runner.ring.size >= cfg.batch_size:
             if use_seq:
@@ -346,7 +364,7 @@ def make_train(cfg: RecurrentQConfig, env=None):
             else:
                 # one update per train_freq completed episodes: a batch of
                 # envs may finish several in one iteration
-                due = episodes // cfg.train_freq - runner.episodes // cfg.train_freq
+                due = episodes // cfg.train_freq - (episodes - n_ended) // cfg.train_freq
         n_run, debt = cadence.bounded_due(runner.update_debt, due, n_slots)
         params, opt_state = runner.params, runner.opt_state
         loss, gnorm = runner.last_loss, runner.last_gnorm
@@ -368,12 +386,16 @@ def make_train(cfg: RecurrentQConfig, env=None):
             tau = float(np.float32(1.0) - np.float32(1.0 - cfg.polyak) ** np.float32(due_t))
             with torch.no_grad():
                 target_params = nets.soft_update(target_params, params, tau)
-        runner = runner.replace(
+        return runner.replace(
             params=params, target_params=target_params, opt_state=opt_state,
-            env_state=env_state, obs=ts2.obs, state=ts2.state, avail=ts2.avail, h=h2,
-            stats=stats, step=step, episodes=episodes, update_debt=debt,
-            last_loss=loss, last_gnorm=gnorm, num_updates=runner.num_updates + n_run)
-        return runner, epsilon
+            update_debt=debt, last_loss=loss, last_gnorm=gnorm,
+            num_updates=runner.num_updates + n_run)
+
+    def train_iter(runner: RecQRunnerState):
+        """One env step of the batch, its record, and the updates and
+        target step it makes due. → (runner, epsilon)."""
+        runner, n_ended, epsilon = act_iter(runner)
+        return update_iter(runner, n_ended), epsilon
 
     def scalar(x):
         return torch.tensor(float(x), device=device)
@@ -400,6 +422,7 @@ def make_train(cfg: RecurrentQConfig, env=None):
     eval_fn = make_evaluator(env, cfg.num_eval_ep, greedy_policy,
                              init_carry=lambda m: nets.rnn_initial_state((m, n), H, device))
     meta = {"update": update, "update_seq": update_seq, "train_iter": train_iter,
+            "act_iter": act_iter, "update_iter": update_iter,
             "steps_per_block": cfg.num_envs * cfg.log_interval, "gru_impl": gru_impl,
             "local_envs": N}
     return init, train_block, eval_fn, meta

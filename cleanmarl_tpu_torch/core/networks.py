@@ -343,15 +343,16 @@ def mixer_init(generator, n_agents: int, state_dim: int, embed_dim: int,
 def mixer_apply(params, agent_qs: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """agent_qs (..., n_agents), state (..., state_dim) → Q_tot (...). The
     dims come from the weight shapes."""
-    embed_dim = params["hb1"]["b"].shape[0]
-    n_agents = params["hw1"]["head"]["b"].shape[0] // embed_dim
-    w1 = torch.abs(mlp_apply(params["hw1"], state))
-    w1 = w1.reshape(state.shape[:-1] + (n_agents, embed_dim))
-    b1 = dense(params["hb1"], state)
-    w2 = torch.abs(mlp_apply(params["hw2"], state))
-    b2 = mlp_apply(params["hb2"], state)
-    hidden = torch.nn.functional.elu(torch.einsum("...a,...ae->...e", agent_qs, w1) + b1)
-    return torch.einsum("...e,...e->...", hidden, w2) + b2[..., 0]
+    with span("net.mixer"):
+        embed_dim = params["hb1"]["b"].shape[0]
+        n_agents = params["hw1"]["head"]["b"].shape[0] // embed_dim
+        w1 = torch.abs(mlp_apply(params["hw1"], state))
+        w1 = w1.reshape(state.shape[:-1] + (n_agents, embed_dim))
+        b1 = dense(params["hb1"], state)
+        w2 = torch.abs(mlp_apply(params["hw2"], state))
+        b2 = mlp_apply(params["hb2"], state)
+        hidden = torch.nn.functional.elu(torch.einsum("...a,...ae->...e", agent_qs, w1) + b1)
+        return torch.einsum("...e,...e->...", hidden, w2) + b2[..., 0]
 
 
 def soft_update(target_params, online_params, polyak: float):

@@ -100,8 +100,16 @@ def test_recurrent_qmix_block_counts_the_off_policy_spans():
     calls = {k: v["calls"] for k, v in rec.spans.items()}
     n = runner.num_updates
     assert n > 0
-    assert calls == {"env.step": QMIX_RNN["log_interval"], "ring.commit": QMIX_RNN["log_interval"],
-                     "ring.sample": n, "optim.update": n, "net.polyak": 1}
+    iters = QMIX_RNN["log_interval"]
+    # the mixer runs twice an update: the target's and the online Q_tot
+    assert calls == {"env.step": iters, "ring.commit": iters, "rq.act": iters,
+                     "ring.sample": n, "rq.update": n, "rq.target": n, "rq.td_grad": n,
+                     "net.mixer": 2 * n, "optim.update": n, "net.polyak": 1}
+    t_max = runner.ring.t_max
+    counters = rec.counter_values()
+    assert counters["rq.padded_steps"] == n * QMIX_RNN["batch_size"] * t_max
+    # every sampled matrix-game episode is whole: 8 steps of t_max
+    assert counters["rq.valid_steps"] == n * QMIX_RNN["batch_size"] * 8
 
 
 @pytest.mark.parametrize("family", ["mappo", "qmix_rnn"])
