@@ -2876,9 +2876,9 @@ def _p12_leaves(state, table, rank=0, world=1):
             cut[path] = x[(slice(None),) * axis + (slice(rank, None, world),)]
 
     for name in sorted(state):
-        if name == "ring":         # an episode ring: rows, then one scratch row
-            for k in sorted(state[name]):
-                walk(state[name][k], f"ring.{k}", 0, k in ("data", "length"))
+        if name == "ring":         # rows, then one scratch row, in its leaves
+            for k in sorted(state[name]):  # (an episode ring's stored) and length
+                walk(state[name][k], f"ring.{k}", 0, k in ("stored", "length"))
         else:
             walk(state[name], name, table.get(name), False)
     return cut, sums, gens

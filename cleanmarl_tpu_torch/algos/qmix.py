@@ -169,12 +169,16 @@ def make_train(cfg: QMIXConfig, env=None):
         }
         env_state, ts = vec.reset(generator)
         zero = torch.zeros((), device=device)
+        # within an episode next_obs[t] is obs[t + 1] (the env batch resets
+        # only an ended env), so the full layout stores each pair once
+        pairs = None if cfg.memefficient else {"next_obs": "obs", "next_state": "state"}
         return QMIXRunnerState(
             params=params, target_params=tree_map(torch.clone, params),
             opt_state=opt.init(params),
             ring=EpisodeBuffer.create(cfg.buffer_size, env.episode_limit,
-                                      example_record(), rank, world),
-            acc=EpisodeAccumulator.create(N, env.episode_limit, example_record()),
+                                      example_record(), rank, world, pairs=pairs),
+            acc=EpisodeAccumulator.create(N, env.episode_limit, example_record(),
+                                          pairs=pairs),
             env_state=env_state, obs=ts.obs, state=ts.state, avail=ts.avail,
             stats=EpisodeStats.create(N, device), step=0, episodes=0,
             update_debt=0, last_loss=zero, last_gnorm=zero.clone(), num_updates=0,

@@ -229,9 +229,13 @@ def make_train(cfg: RecurrentQConfig, env=None):
                                          rank, world)
             acc = SequenceAccumulator.create(N, cfg.seq_length, example_record())
         else:
+            # within an episode next_obs[t] is obs[t + 1] (the env batch
+            # resets only an ended env), so the ring stores each pair once
+            pairs = {"next_obs": "obs", "next_state": "state"}
             ring = EpisodeBuffer.create(cfg.buffer_size, env.episode_limit,
-                                        example_record(), rank, world)
-            acc = EpisodeAccumulator.create(N, env.episode_limit, example_record())
+                                        example_record(), rank, world, pairs=pairs)
+            acc = EpisodeAccumulator.create(N, env.episode_limit, example_record(),
+                                            pairs=pairs)
         zero = torch.zeros((), device=device)
         return RecQRunnerState(
             params=params, target_params=tree_map(torch.clone, params),

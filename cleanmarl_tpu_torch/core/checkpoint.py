@@ -140,7 +140,11 @@ def from_state(template, saved, path: str = "runner", as_saved: bool = False) ->
     if hasattr(template, "__dict__"):
         attrs = vars(template)
         if not isinstance(saved, dict) or set(saved) != set(attrs):
-            raise mismatch(f"expected the attributes {sorted(attrs)}")
+            # e.g. an episode ring of another layout: ``data`` where this
+            # one keeps ``stored`` and ``pairs`` (buffers/episode.py)
+            got = sorted(saved) if isinstance(saved, dict) else type(saved).__name__
+            raise mismatch(f"the file's {type(template).__name__} has the attributes {got}, "
+                           f"this one {sorted(attrs)}")
         out = copy.copy(template)
         out.__dict__.update({k: from_state(v, saved[k], f"{path}.{k}", as_saved)
                              for k, v in attrs.items()})

@@ -220,14 +220,19 @@ def mappo_block(rank, world, port, kw):
 # driver-option tests of test_torch_{qmix,maddpg,facmac}.py)
 # ---------------------------------------------------------------------------
 
+# the successor pairs of an ``episode_paired`` ring (``buffers/episode.py``)
+SUCCESSOR_PAIRS = {"next_obs": "obs", "next_state": "state"}
+
+
 def _ring_pair(kind, cap, length, example, num_envs, rank, world):
     from cleanmarl_tpu_torch.buffers.episode import EpisodeAccumulator, EpisodeBuffer
     from cleanmarl_tpu_torch.buffers.sequence import SequenceAccumulator, SequenceBuffer
     from cleanmarl_tpu_torch.buffers.transition import TransitionBuffer
 
-    if kind == "episode":
-        return (EpisodeBuffer.create(cap, length, example, rank, world),
-                EpisodeAccumulator.create(num_envs, length, example))
+    if kind in ("episode", "episode_paired"):
+        pairs = SUCCESSOR_PAIRS if kind == "episode_paired" else None
+        return (EpisodeBuffer.create(cap, length, example, rank, world, pairs=pairs),
+                EpisodeAccumulator.create(num_envs, length, example, pairs=pairs))
     if kind == "sequence":
         return (SequenceBuffer.create(cap, length, example, rank, world),
                 SequenceAccumulator.create(num_envs, length, example))
@@ -235,11 +240,12 @@ def _ring_pair(kind, cap, length, example, num_envs, rank, world):
 
 
 def feed_ring(kind, cap, length, steps, rank=0, world=1, sample=(5, 6)):
-    """A ring of ``kind`` (episode, sequence or transition) of ``cap`` global
-    rows fed this rank's envs of every ``(record, ended)`` step (numpy,
-    leading axis num_envs) → after each step (the ring's rows, lengths,
-    cursor, size and the counts ``add_step`` returned), then
-    ``ring.sample(Generator(seed), n)`` for ``sample = (seed, n)``."""
+    """A ring of ``kind`` (episode, episode_paired, sequence or transition)
+    of ``cap`` global rows fed this rank's envs of every ``(record,
+    ended)`` step (numpy, leading axis num_envs) → after each step (the
+    ring's rows, lengths, cursor, size and the counts ``add_step``
+    returned), then ``ring.sample(Generator(seed), n)`` for ``sample =
+    (seed, n)``."""
     rec0 = steps[0][0]
     example = {k: torch.zeros(v.shape[1:], dtype=torch.as_tensor(v).dtype)
                for k, v in rec0.items()}

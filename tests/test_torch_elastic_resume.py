@@ -111,12 +111,18 @@ def flat(state, path="runner"):
     return [(path, state)]
 
 
+def ring_rows(ring):
+    """The leaves of a ring's ``to_state``: ``stored`` on an episode ring
+    (``buffers/episode.py``), ``data`` on a sequence ring."""
+    return ring["stored"] if "stored" in ring else ring["data"]
+
+
 def without_scratch(state):
     """A runner's ``to_state`` with the scratch row of its episode or
     sequence ring zeroed (nothing reads it; a restore zeroes it)."""
     ring = state.get("ring")
     if ring is not None:
-        for _, x in flat({"data": ring["data"], "length": ring.get("length")}):
+        for _, x in flat({"data": ring_rows(ring), "length": ring.get("length")}):
             if isinstance(x, torch.Tensor):
                 x[-1] = 0
     return state
@@ -278,7 +284,7 @@ def test_two_ranks_restored_at_one_is_the_global_runner(name, elastic):
     if ring is not None:
         assert ring["size"] > 0 and ring["capacity"] == kw["buffer_size"]
     if "ring" in state:                                 # one scratch row, zeroed
-        for _, x in flat(ring["data"]):
+        for _, x in flat(ring_rows(ring)):
             assert x.shape[0] == kw["buffer_size"] + 1 and not x[-1].any()
 
 

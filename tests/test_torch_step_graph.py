@@ -8,6 +8,11 @@ give the eager step's outputs bitwise. On the card (``cuda`` marker): the
 graphed step against the eager one, bitwise, 60 steps with auto-resets, on
 SMAClite 3m at 8192 envs, LBF and the other device envs.
 
+The successor equality, on the eager route, on the graph's data flow and
+on the card: an env whose episode goes on returns as its next ``obs`` and
+``state`` bitwise the step's ``final`` ones, which the episode ring's
+paired layout stores once (``buffers/episode.py``).
+
 The reference is the eager step as it stood before the graph
 (``_eager_step``). This file imports neither JAX nor the JAX package, so
 the card tests run on a machine without JAX:
@@ -252,6 +257,57 @@ def test_graph_binds_to_the_latest_generator(stand_in_capture):
 
 
 # ---------------------------------------------------------------------------
+# the successor equality that the episode ring stores once
+# ---------------------------------------------------------------------------
+
+# the envs behind the paired episode ring, as the algorithms build them
+# (agent ids on): recurrent QMIX on SMAClite 3m, QMIX on MPE spread; with
+# short episodes, so that a run of steps crosses auto-resets
+SUCCESSOR_ENVS = {
+    "smaclite_3m": ("smaclite", "3m", dict(agent_ids=True, time_limit=6)),
+    "mpe_spread": ("mpe", "simple_spread_v3", dict(agent_ids=True, max_cycles=6)),
+}
+
+
+def _hold_successor(vec, seed, steps):
+    """Every step, each env whose episode goes on returns as its next
+    ``obs`` and ``state`` bitwise the step's ``final`` ones: the episode
+    ring stores ``next_obs[t]`` as ``obs[t + 1]`` (``buffers/episode.py``).
+    → the (env, step) pairs held and the episodes that ended."""
+    gen = torch.Generator(vec.device).manual_seed(seed)
+    state, ts = vec.reset(gen)
+    held = ended = 0
+    for t in range(steps):
+        state, ts, final = vec.step(state, vec.sample(gen, ts.avail), gen)
+        on = ~torch.logical_or(ts.done, ts.truncated)
+        for k in ("obs", "state"):
+            assert torch.equal(_bits(getattr(ts, k)[on]), _bits(getattr(final, k)[on])), \
+                f"step {t}: {k}"
+        held += int(on.sum())
+        ended += int((~on).sum())
+    return held, ended
+
+
+def _successor_vec(name, num_envs, device):
+    env_type, env_name, kw = SUCCESSOR_ENVS[name]
+    return VecEnv(registry.make(env_type, env_name, device=device, **kw), num_envs)
+
+
+@pytest.mark.parametrize("name", sorted(SUCCESSOR_ENVS))
+def test_eager_step_successor_is_the_next_observation(name):
+    held, ended = _hold_successor(_successor_vec(name, 5, "cpu"), seed=3, steps=14)
+    assert held > 0 and ended > 0
+
+
+@pytest.mark.parametrize("name", sorted(SUCCESSOR_ENVS))
+def test_graph_step_successor_is_the_next_observation(stand_in_capture, name):
+    with tracing.recording() as rec:
+        held, ended = _hold_successor(_successor_vec(name, 5, "cpu"), seed=3, steps=14)
+    assert held > 0 and ended > 0
+    assert rec.spans["env.step.replay"]["calls"] == 13
+
+
+# ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
 
@@ -287,3 +343,14 @@ def test_every_device_env_graphed_bitwise_on_card(name, auto_reset):
     vec = _vec(name, 256, "cuda", auto_reset)
     calls = _hold_contract(vec, seed=5, steps=20, rerun_from=8)
     assert calls == {"env.step": 32, "env.step.capture": 1, "env.step.replay": 31}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SUCCESSOR_ENVS))
+def test_graphed_step_successor_is_the_next_observation_on_card(name):
+    _card()
+    with tracing.recording() as rec:
+        held, ended = _hold_successor(_successor_vec(name, 256, "cuda"), seed=2**33 + 5,
+                                      steps=20)
+    assert held > 0 and ended > 0
+    assert rec.spans["env.step.replay"]["calls"] == 19
